@@ -3,21 +3,28 @@
 
     python3 chip_smoke.py [--steps 500] [--profile DIR]
 
-Drives the port's main path, the single-stream closed-loop NMPC (MX5 on
-buckmore, horizon 10, float32, 500 control cycles), through the same entry
-points the CLI uses, after building the hand-written CUDA kernel from the
-sources in this checkout and holding it against its plain PyTorch twin on
-the card.  Phases:
+Drives the port's two NMPC paths through the entry points a user calls,
+after building the hand-written CUDA kernels from the sources in this
+checkout and holding each against its plain PyTorch twin on the card: the
+single-stream closed loop (`runner.closed_loop`: MX5 on buckmore, horizon
+10, float32, 500 control cycles) and the fleet of 32 independent closed
+loops (`runner.closed_loop_batch`: bench.py's batch, x0 tiled + 0.01·b,
+max(10, steps // 5) = 100 cycles, as bench.py:82 sets them).  Phases:
 
 1. versions, the card's name and power limit, TF32 off;
-2. build `csrc/ilqr.cu` with nvcc;
-3. kernel vs twin at the main path's shapes from a real linearisation, for
-   14 and 16 constraint rows, float64 and float32, torque vectoring on;
-   kernel and twin time per call;
-4. a 5-cycle float64 closed loop on the card (kernel) against the same loop
-   on the CPU (twin), then a short warm-up and the timed closed loop, whose
-   kernel launches are counted;
-5. the summary lines; the last one is {"ok": true, "device": {...}}.
+2. build `csrc/ilqr.cu` (both kernels) with nvcc;
+3. kernel vs twin at the main paths' shapes from a real linearisation, for
+   14 and 16 constraint rows, float64 and float32, torque vectoring on:
+   the one-OCP kernel on three states, the batch kernel on 32 instances
+   spread over the lap with reg from 1e-6 to 1e2, and the batch kernel
+   against the one-OCP kernel on every instance; time per call of each
+   kernel and its twin;
+4. single stream: a 5-cycle float64 closed loop on the card (kernel)
+   against the same loop on the CPU (twin), then a short warm-up and the
+   timed closed loop, whose kernel launches are counted;
+5. fleet: a 3-cycle float64 batched loop (4 instances) on the card against
+   the CPU, then the timed 32-instance loop, with its launches counted;
+6. the summary lines; the last one is {"ok": true, "device": {...}}.
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed.  Without a CUDA device, or without the package beside it, the
@@ -45,6 +52,16 @@ F64_TOL, F32_TOL = 1e-10, 1e-4
 # the applied states (< 1e-2, as bench.py) and its predicted maximum is
 # printed.
 PREDICTED_WINDOW = 25
+BATCH = 32  # the fleet of bench.py's context line (bench.py:79-83)
+# bench.py's fleet adds 0.01·b to every state component, so instance b starts
+# b cm off the line with b/100 rad of heading error, yaw rate and steer.  The
+# JAX package's own controller (XLA path, float32, on the CPU) keeps
+# instances 0-25 inside the true band (applied violation 0.0) and drives
+# 26-31 over the left limit at cycles 6-7 (0.114, 0.103, 0.175, 0.247, 0.286,
+# 0.409 m); the port reproduces those numbers on the CPU.  The applied-state
+# gate (< 1e-2) therefore holds the first 26 instances; every instance is
+# held to finite states and monotone progress, and the others are printed.
+FLEET_IN_BAND = 26
 
 
 def nvidia_smi() -> str:
@@ -67,30 +84,39 @@ def load_main_path(device, dtype, tv=False, te=False):
     return model, OCPParams.reference(dtype, device, lateral_margin=0.05)
 
 
-def kernel_inputs(model, p, cfg, s0, lam_scale, seed):
-    """The kernel's arguments at one iterate of a solve from the reference
-    state moved to arc length s0, with seeded steering and multipliers."""
-    from lap_time_optimization_tpu_torch.mpc import runner
+def kernel_inputs(model, p, cfg, x0, lam_scale, seed):
+    """The kernels' arguments (all but reg_b) at one iterate of a solve from
+    x0 ((NX,) for the one-OCP kernel, (B, NX) for the batch kernel), with
+    seeded steering and multipliers."""
     from lap_time_optimization_tpu_torch.mpc import solver as S
     from lap_time_optimization_tpu_torch.ops import ilqr
 
     rng = np.random.default_rng(seed)
     dtype, device = model.track.k_vals.dtype, model.track.k_vals.device
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    x0 = runner.X0_REFERENCE.copy()
-    x0[0] = s0
-    z0 = t(np.concatenate([x0, np.zeros(2)]))
-    us = t(np.stack([rng.normal(0.0, 0.3, cfg.horizon), np.full(cfg.horizon, 0.05)], axis=1))
-    lams = t(rng.uniform(0.0, lam_scale, (cfg.horizon + 1, S.n_con(model))))
+    lead = x0.shape[:-1]
+    z0 = t(np.concatenate([x0, np.zeros(lead + (2,))], axis=-1))
+    us = t(np.stack([rng.normal(0.0, 0.3, lead + (cfg.horizon,)),
+                     np.full(lead + (cfg.horizon,), 0.05)], axis=-1))
+    lams = t(rng.uniform(0.0, lam_scale, lead + (cfg.horizon + 1, S.n_con(model))))
     zs = S._rollout(model, cfg, z0, us)
     rho, reg = t(cfg.rho_init), t(cfg.reg_init)
-    A, B = S._linearize_joint(model, cfg, zs, us)
-    quads = S._quads_gauss_newton(model, p, zs[:-1], us, lams[:-1], rho)
-    Vz, Vzz = S._terminal_quads_gauss_newton(model, p, zs[-1], lams[-1], rho)
-    c = lambda a: a.contiguous()
-    return [c(A), c(B), *map(c, quads), c(Vz), c(Vzz), c(zs), c(us), c(lams),
-            c(ilqr.tables_matrix(model)), ilqr.ladder(cfg.n_linesearch, dtype, device),
-            ilqr.scal_vector(model, p, cfg, rho, reg)]
+    return [*S._kernel_inputs(model, p, cfg, zs, us, lams, rho), zs.contiguous(),
+            us.contiguous(), lams.contiguous(), ilqr.tables_matrix(model).contiguous(),
+            ilqr.ladder(cfg.n_linesearch, dtype, device), ilqr.scal_vector(model, p, cfg, rho, reg)]
+
+
+def fleet_states(track, n: int) -> np.ndarray:
+    """`n` reference states spread over the lap, the last 3 m before the
+    seam, at speeds from 4 to 12 m/s: the batch kernel's parity inputs."""
+    from lap_time_optimization_tpu_torch.mpc import runner
+
+    s_max = float(track.s_max)
+    x0 = np.tile(runner.X0_REFERENCE, (n, 1))
+    x0[:, 0] = np.linspace(0.0, s_max, n, endpoint=False)
+    x0[-1, 0] = s_max - 3.0
+    x0[:, 3] = np.linspace(4.0, 12.0, n)
+    return x0
 
 
 def max_err(got, ref):
@@ -113,41 +139,54 @@ def cuda_ms(fn, n):
     return start.elapsed_time(stop) / n
 
 
-def profile_cycles(model, p, cfg, x0, out_dir, cycle_ms, steps=3):
-    """torch.profiler over a short closed loop (presolve + `steps` cycles):
-    device busy time and kernel count per solve, the iLQR kernel's share,
-    and the busy share of `cycle_ms`, the unprofiled time per control cycle
-    (the profiler's own host cost makes its wall clock useless for that)."""
+def profile_cycles(run, name, kernel, out_dir, cycle_ms, steps=3):
+    """torch.profiler over `run(steps)`, a short closed loop (presolve +
+    `steps` cycles): device busy time and kernel count per solve, the iLQR
+    kernel's share (device kernels whose name holds `kernel`), and the busy
+    share of `cycle_ms`, the unprofiled time per control cycle (the
+    profiler's own host cost makes its wall clock useless for that)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from lap_time_optimization_tpu_torch.mpc import runner
 
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.closed_loop(model, p, cfg, x0, steps)
+        run(steps)
         torch.cuda.synchronize()
     averages = prof.key_averages()
     device = [a for a in averages if a.device_type == DeviceType.CUDA]
     solves = steps + 2
     busy_ms = sum(a.self_device_time_total for a in device) / 1e3 / solves
     kernels = sum(a.count for a in device) / solves
-    ilqr_ms = sum(a.self_device_time_total for a in device if "ilqr_kernel" in a.key) / 1e3 / solves
+    ilqr_ms = sum(a.self_device_time_total for a in device if kernel in a.key) / 1e3 / solves
     table = averages.table(sort_by="self_device_time_total", row_limit=30)
-    with open(os.path.join(out_dir, "closed_loop_profile.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as fh:
         fh.write(table)
-    print(f"profile ({solves} solves): device busy {busy_ms:.2f} ms per solve "
+    print(f"profile {name} ({solves} solves): device busy {busy_ms:.2f} ms per solve "
           f"({100 * busy_ms / cycle_ms:.1f}% of the unprofiled {cycle_ms:.1f} ms per control "
-          f"cycle), {kernels:.0f} device kernels per solve, iLQR kernel {ilqr_ms:.2f} ms "
+          f"cycle), {kernels:.0f} device kernels per solve, {kernel} {ilqr_ms:.2f} ms "
           f"per solve ({100 * ilqr_ms / busy_ms:.1f}% of busy)")
+
+
+def check_kernel(label, got, ref, tol):
+    """Print and gate one kernel-vs-twin comparison; returns the largest
+    plain |d| over zs, us and cost."""
+    rel, ab = max_err(got[:3], ref[:3])
+    ok_same = bool(torch.equal(got[3], ref[3]))
+    print(f"{label}: max |d|/max(1,|ref|) = {rel:.3e} (tol {tol:g}); max |d| zs {ab[0]:.3e}, "
+          f"us {ab[1]:.3e}, cost {ab[2]:.3e} (max |cost| {float(ref[2].abs().max()):.1f}); "
+          f"ok {int(got[3].sum())}/{int(ref[3].sum())} of {got[3].numel()}, equal {ok_same}")
+    if not (rel <= tol and ok_same):
+        raise AssertionError(f"{label}: kernel disagrees")
+    return max(ab)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=500, help="timed closed-loop control cycles")
+    ap.add_argument("--steps", type=int, default=500,
+                    help="timed single-stream control cycles; the fleet runs max(10, steps // 5)")
     ap.add_argument("--profile", type=str, default=None,
-                    help="directory for a torch.profiler summary of 3 control cycles")
+                    help="directory for torch.profiler summaries of 3 control cycles of each loop")
     args = ap.parse_args(argv)
 
     # ---------------------------------------------------------------- phase 1
@@ -177,30 +216,47 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- phase 3
     cfg = SolverConfig(horizon=10)
-    worst_f32_abs = 0.0
+    sub = cfg.substeps
+    worst_f32_abs = [0.0, 0.0]  # one-OCP kernel, batch kernel
     for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
         for tv, te in ((False, False), (False, True), (True, False)):
             model, p = load_main_path(device, dtype, tv, te)
+            tag = f"{str(dtype)[6:]} n_con={14 + 2 * te} tv={tv}"
+            errs = []
             for s0, lam_scale, seed in ((0.0, 0.0, 0), (430.0, 2.0, 1), (855.0, 5.0, 2)):
-                inp = kernel_inputs(model, p, cfg, s0, lam_scale, seed)
-                got = ilqr.backward_forward(*inp, substeps=cfg.substeps)
-                ref = ilqr.backward_forward_reference(*inp, substeps=cfg.substeps)
-                torch.cuda.synchronize()
-                rel, ab = max_err(got[:3], ref[:3])
-                print(f"kernel vs twin {str(dtype)[6:]} n_con={inp[11].shape[1]} tv={tv} s0={s0}: "
-                      f"max |d|/max(1,|ref|) = {rel:.3e} (tol {tol:g}); max |d| zs {ab[0]:.3e}, "
-                      f"us {ab[1]:.3e}, cost {ab[2]:.3e} (|cost| {float(ref[2]):.1f}); "
-                      f"ok {float(got[3]):.0f}/{float(ref[3]):.0f}")
-                if not (rel <= tol and float(got[3]) == float(ref[3])):
-                    raise AssertionError("kernel disagrees with its plain twin")
-                if dtype == torch.float32:
-                    worst_f32_abs = max(worst_f32_abs, *ab)
+                x0 = runner.X0_REFERENCE.copy()
+                x0[0] = s0
+                inp = kernel_inputs(model, p, cfg, x0, lam_scale, seed)
+                errs.append(check_kernel(f"kernel vs twin {tag} s0={s0}",
+                                         ilqr.backward_forward(*inp, substeps=sub),
+                                         ilqr.backward_forward_reference(*inp, substeps=sub), tol))
+            inp = kernel_inputs(model, p, cfg, fleet_states(model.track, BATCH), 2.0, 3)
+            reg_b = torch.logspace(-6, 2, BATCH, dtype=dtype, device=device)
+            got = ilqr.backward_forward_batch(*inp, reg_b, substeps=sub)
+            errs_b = [check_kernel(f"batch kernel vs twin {tag} B={BATCH}", got,
+                                   ilqr.backward_forward_batch_reference(*inp, reg_b, substeps=sub),
+                                   tol)]
+            # instance b of the batch kernel is the one-OCP kernel at reg_b[b]
+            one = [ilqr.backward_forward(*(a[b].contiguous() for a in inp[:12]), *inp[12:14],
+                                         torch.cat([inp[14][:1], reg_b[b:b + 1], inp[14][2:]]),
+                                         substeps=sub) for b in range(BATCH)]
+            check_kernel(f"batch kernel vs one-OCP kernel per instance {tag}", got,
+                         [torch.stack(t) for t in zip(*one)], tol)
+            if dtype == torch.float32:
+                worst_f32_abs = [max(worst_f32_abs[0], *errs), max(worst_f32_abs[1], *errs_b)]
 
     model, p = load_main_path(device, torch.float32)
-    inp = kernel_inputs(model, p, cfg, 0.0, 0.0, 0)
-    kernel_ms = cuda_ms(lambda: ilqr.backward_forward(*inp, substeps=cfg.substeps), 200)
-    twin_ms = cuda_ms(lambda: ilqr.backward_forward_reference(*inp, substeps=cfg.substeps), 20)
-    print(f"per call at N=10 L=6 substeps=2 n=846 f32: kernel {kernel_ms:.4f} ms, twin {twin_ms:.4f} ms")
+    inp = kernel_inputs(model, p, cfg, runner.X0_REFERENCE, 0.0, 0)
+    kernel_ms = cuda_ms(lambda: ilqr.backward_forward(*inp, substeps=sub), 200)
+    twin_ms = cuda_ms(lambda: ilqr.backward_forward_reference(*inp, substeps=sub), 20)
+    print(f"one-OCP kernel per call at N=10 L=6 substeps=2 n=846 f32: kernel {kernel_ms:.4f} ms, "
+          f"twin {twin_ms:.4f} ms")
+    inp = kernel_inputs(model, p, cfg, fleet_states(model.track, BATCH), 2.0, 3)
+    reg_b = torch.full((BATCH,), cfg.reg_init, dtype=torch.float32, device=device)
+    batch_ms = cuda_ms(lambda: ilqr.backward_forward_batch(*inp, reg_b, substeps=sub), 200)
+    batch_twin_ms = cuda_ms(lambda: ilqr.backward_forward_batch_reference(*inp, reg_b, substeps=sub), 20)
+    print(f"batch kernel per call at B={BATCH} N=10 L=6 substeps=2 n=846 f32: kernel {batch_ms:.4f} ms, "
+          f"twin {batch_twin_ms:.4f} ms")
 
     # ---------------------------------------------------------------- phase 4
     x0_np = runner.X0_REFERENCE
@@ -216,12 +272,12 @@ def main(argv=None) -> int:
     x0 = torch.as_tensor(x0_np, dtype=torch.float32, device=device)
     runner.closed_loop(model, p, cfg, x0, 3)  # warm-up: allocator, cuBLAS handles
     torch.cuda.synchronize()
-    ilqr.LAUNCHES = 0
+    ilqr.LAUNCHES = ilqr.BATCH_LAUNCHES = 0
     t0 = time.perf_counter()
     sim = runner.closed_loop(model, p, cfg, x0, args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ilqr.LAUNCHES
+    launches, stray = ilqr.LAUNCHES, ilqr.BATCH_LAUNCHES
     xs = sim.xs.cpu().numpy()
     applied = runner.applied_violation(model, p, sim)
     viols = sim.violations.cpu().numpy()
@@ -233,8 +289,9 @@ def main(argv=None) -> int:
           f"{float(viols.max()):.3e} over all (step {int(viols.argmax())}); "
           f"kernel launches {launches} ({launches / (args.steps + 2):.1f} per control cycle)")
     expected = (args.steps + 2) * cfg.al_iters * cfg.ilqr_iters
-    if launches != expected:
-        raise AssertionError(f"{launches} kernel launches, expected {expected}")
+    if launches != expected or stray != 0:
+        raise AssertionError(f"{launches} kernel launches, expected {expected}; "
+                             f"{stray} batch-kernel launches, expected 0")
     if xs.shape != (args.steps + 1, 8) or not np.all(np.isfinite(xs)):
         raise AssertionError("closed-loop states are not finite or of the wrong shape")
     if not np.all(np.diff(xs[:, 0]) > 0):
@@ -243,18 +300,77 @@ def main(argv=None) -> int:
         raise AssertionError("constraint violation above its gate")
 
     if args.profile:
-        profile_cycles(model, p, cfg, x0, args.profile, 1e3 * wall / args.steps)
+        profile_cycles(lambda n: runner.closed_loop(model, p, cfg, x0, n), "closed_loop",
+                       "ilqr_kernel", args.profile, 1e3 * wall / args.steps)
 
     # ---------------------------------------------------------------- phase 5
+    batch_steps = max(10, args.steps // 5)  # bench.py:82
+    x0b_np = np.tile(x0_np, (BATCH, 1)) + 0.01 * np.arange(BATCH)[:, None]  # bench.py:81-83
+    got = runner.closed_loop_batch(m64, p64, cfg, torch.as_tensor(x0b_np[:4], device=device), 3)
+    ref = runner.closed_loop_batch(ref_m, ref_p, cfg, torch.as_tensor(x0b_np[:4]), 3)
+    dev = float((got.xs.cpu() - ref.xs).abs().max())
+    print(f"3-cycle f64 batched loop of 4, card (batch kernel) vs CPU (twin): max |d xs| = {dev:.3e} "
+          f"(tol 1e-9)")
+    if not dev <= 1e-9:
+        raise AssertionError("batched loop on the card disagrees with the CPU reference")
+
+    x0b = torch.as_tensor(x0b_np, dtype=torch.float32, device=device)
+    runner.closed_loop_batch(model, p, cfg, x0b, 2)  # warm-up at B=32
+    torch.cuda.synchronize()
+    ilqr.LAUNCHES = ilqr.BATCH_LAUNCHES = 0
+    t0 = time.perf_counter()
+    fleet = runner.closed_loop_batch(model, p, cfg, x0b, batch_steps)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    batch_launches, stray = ilqr.BATCH_LAUNCHES, ilqr.LAUNCHES
+    bxs = fleet.xs.cpu().numpy()
+    per = [runner.applied_violation(model, p, runner.SimResult(*(a[b] for a in fleet)))
+           for b in range(BATCH)]
+    bapplied = max(per[:FLEET_IN_BAND])
+    solves_per_s = BATCH * batch_steps / bwall
+    print(f"fleet: {BATCH} loops x {batch_steps} steps f32 in {bwall:.3f} s = "
+          f"{solves_per_s:.1f} solves/s ({batch_steps / bwall:.2f} control cycles/s); "
+          f"progress {bxs[:, -1, 0].min():.2f}-{bxs[:, -1, 0].max():.2f} m; applied violation, "
+          f"worst of instances 0-{FLEET_IN_BAND - 1} {bapplied:.3e}, instances {FLEET_IN_BAND}-{BATCH - 1} "
+          f"{[round(v, 4) for v in per[FLEET_IN_BAND:]]}; predicted violation over all "
+          f"{float(fleet.violations.max()):.3e}; "
+          f"batch-kernel launches {batch_launches} ({batch_launches / (batch_steps + 2):.1f} "
+          f"per control cycle), one-OCP kernel launches {stray}")
+    expected = (batch_steps + 2) * cfg.al_iters * cfg.ilqr_iters
+    if batch_launches != expected or stray != 0:
+        raise AssertionError(f"{batch_launches} batch-kernel launches, expected {expected}; "
+                             f"{stray} one-OCP kernel launches, expected 0")
+    if bxs.shape != (BATCH, batch_steps + 1, 8) or not np.all(np.isfinite(bxs)):
+        raise AssertionError("fleet states are not finite or of the wrong shape")
+    if not np.all(np.diff(bxs[:, :, 0], axis=1) > 0):
+        raise AssertionError("track progress of some instance is not monotone")
+    if not bapplied < 1e-2:
+        raise AssertionError(f"applied violation of an instance below {FLEET_IN_BAND} above its gate")
+
+    if args.profile:
+        profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
+                       "ilqr_batch_kernel", args.profile, 1e3 * bwall / batch_steps)
+
+    # ---------------------------------------------------------------- phase 6
+    source = "lap_time_optimization_tpu_torch/csrc/ilqr.cu"
     print(json.dumps({"kernels": [{
         "name": "ilqr_backward_forward",
         "route": "cuda",
-        "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
+        "source": source,
         "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr.py:471",
         "launches": launches,
-        "max_abs_err": worst_f32_abs,
+        "max_abs_err": worst_f32_abs[0],
         "ms": kernel_ms,
         "plain_ms": twin_ms,
+    }, {
+        "name": "ilqr_backward_forward_batch",
+        "route": "cuda",
+        "source": source,
+        "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr_batch.py:444",
+        "launches": batch_launches,
+        "max_abs_err": worst_f32_abs[1],
+        "ms": batch_ms,
+        "plain_ms": batch_twin_ms,
     }]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,7 @@ def build_parser():
                         "(horizon, dt, steps, weights, x0); explicit flags win over it")
     p.add_argument("--data-dir", type=str, default=None, help="artifact base dir (default: auto-discover)")
     p.add_argument("--output", type=str, default="sim_results.json")
+    p.add_argument("--plot", action="store_true", help="write replay + internals plots")
     p.add_argument("--vref-scale", type=float, default=None,
                    help="fraction of the racing-line velocity profile to track "
                         "(the reference hardcodes 0.6, src/mpc/controller.py:53)")
@@ -148,6 +149,13 @@ def main(argv=None):
     with open(base + "_config.json", "w") as f:
         f.write(conf.to_json())
     print(f"[ Wrote {args.output} ]")
+
+    if args.plot:
+        from lap_time_optimization_tpu_torch.viz import visualiser
+
+        visualiser.plot_replay(base + "_replay.png", track, args.output)
+        visualiser.plot_internal(base + "_internals.png", track, args.output, dt=mc.dt)
+        print(f"[ Wrote {base}_replay.png, {base}_internals.png ]")
     return result
 
 

@@ -1,9 +1,15 @@
-// One fused AL-iLQR iteration for one OCP: Riccati backward sweep + line-search
-// ladder rollout + rung choice.  CUDA C++ for sm_90a.
+// One fused AL-iLQR iteration: Riccati backward sweep + line-search ladder
+// rollout + rung choice, for one OCP or for a batch of independent OCPs.
+// CUDA C++ for sm_90a.
 //
-// Replaces the Pallas TPU kernel lap_time_optimization_tpu/ops/pallas_ilqr.py
-// (`backward_forward`, body `_kernel`).  Its plain PyTorch twin, with the same
-// signature and semantics, is ops/ilqr.py::backward_forward_reference.
+// Replaces two Pallas TPU kernels of lap_time_optimization_tpu/ops/:
+//  * pallas_ilqr.py `backward_forward` (body `_kernel`): one OCP, `ilqr_kernel`;
+//    plain PyTorch twin ops/ilqr.py::backward_forward_reference;
+//  * pallas_ilqr_batch.py `backward_forward_batch` (body `_kernel`): B OCPs
+//    with a Levenberg reg per instance, `ilqr_batch_kernel`; plain PyTorch
+//    twin ops/ilqr.py::backward_forward_batch_reference.
+// Both kernels run one device function, `ilqr_iteration`, so the physics,
+// the AL costs and the Riccati sweep exist once.
 //
 // What bounds it: latency, not bytes or FLOPs.  The backward pass is N serial
 // stages of 10x10 products (about 10 FMAs per output element); each ladder
@@ -27,11 +33,26 @@
 //    recursion needs full fp32, the hazard the Pallas kernel's HIGHEST
 //    precision guards against).  Trig is libdevice's (sin/cos/tan/atan/atan2).
 // Making it fast is later work: fusing the linearisation and quadraticisation
-// into it, capturing a control cycle in a CUDA graph, and a batched kernel.
+// into it and capturing a control cycle in a CUDA graph.
 //
-// C interface (one entry point per type): every pointer is a contiguous
-// device buffer in the layouts of ops/ilqr.py::backward_forward; the launch
-// goes onto `stream`, allocates nothing and returns cudaGetLastError().
+// Batch design (bring-up): a grid of B blocks, block b running the body above
+// on instance b with reg = reg_b[b].  Every block loads the whole (4, n) table
+// into its own shared memory (13.5 KB in f32, 27 KB in f64 at n = 846), so
+// there is no per-instance table window and no clamp at a window edge: the
+// batch kernel equals the single-instance kernel on every instance.  The
+// TPU kernel's cost-only ladder pass and re-roll of the winning rung become
+// the stored ladder of the body, which returns the same trajectories.  What
+// bounds it: the same latency as one OCP (~10^5 dependent flops on one SM),
+// with the B blocks in parallel; past what the card holds at once (132 SMs
+// times the blocks that registers and shared memory let share an SM) they
+// run in waves, and 128 threads per instance leave most lanes idle in the
+// serial ladder.  A later redesign maps one instance to a warp or a thread,
+// so that all B instances fit in one wave and the table is loaded once per SM.
+//
+// C interface (one entry point per type and kernel): every pointer is a
+// contiguous device buffer in the layouts of ops/ilqr.py::backward_forward
+// (with a leading instance axis for backward_forward_batch); the launch goes
+// onto `stream`, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -250,17 +271,17 @@ __device__ T al_terminal_cost(const T* z, const T* lam, int n_con,
   return mterm + al_penalty(z, zero_u, lam, n_con, true, tab, n, sc);
 }
 
+// The kernels' common body: one iteration for one OCP, run by one block.
+// Pointers are the instance's own; `reg` is its Levenberg regularisation.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) ilqr_kernel(
-    const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ lz,
+__device__ __forceinline__ void ilqr_iteration(
+    T* smem, const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ lz,
     const T* __restrict__ lu, const T* __restrict__ lzz, const T* __restrict__ luu,
     const T* __restrict__ luz, const T* __restrict__ Vz_in, const T* __restrict__ Vzz_in,
     const T* __restrict__ zs, const T* __restrict__ us, const T* __restrict__ lams,
     const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
-    T* __restrict__ zs_out, T* __restrict__ us_out, T* __restrict__ cost_out,
+    const T reg, T* __restrict__ zs_out, T* __restrict__ us_out, T* __restrict__ cost_out,
     T* __restrict__ ok_out, int N, int L, int n_con, int n, int substeps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
   T* sc = smem;                       // NS
   T* tab = sc + NS;                   // 4 * n
   T* Vz = tab + 4 * n;                // NZ
@@ -291,7 +312,6 @@ __global__ void __launch_bounds__(THREADS) ilqr_kernel(
   __syncthreads();
 
   // ------------------------------------------------------------- Riccati
-  const T reg = sc[REG];
   for (int k = N - 1; k >= 0; --k) {
     const T* Ak = A + k * NZ * NZ;
     const T* Bk = B + k * NZ * NU;
@@ -438,28 +458,95 @@ __global__ void __launch_bounds__(THREADS) ilqr_kernel(
   }
 }
 
+// One OCP; its reg is the `reg` entry of `scal`.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ilqr_kernel(
+    const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ lz,
+    const T* __restrict__ lu, const T* __restrict__ lzz, const T* __restrict__ luu,
+    const T* __restrict__ luz, const T* __restrict__ Vz, const T* __restrict__ Vzz,
+    const T* __restrict__ zs, const T* __restrict__ us, const T* __restrict__ lams,
+    const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
+    T* __restrict__ zs_out, T* __restrict__ us_out, T* __restrict__ cost_out,
+    T* __restrict__ ok_out, int N, int L, int n_con, int n, int substeps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ilqr_iteration(reinterpret_cast<T*>(smem_raw), A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs,
+                 us, lams, tables, alphas, scal, scal[REG], zs_out, us_out, cost_out, ok_out,
+                 N, L, n_con, n, substeps);
+}
+
+// B independent OCPs, block b on instance b with reg = reg_b[b] (the `reg`
+// entry of the shared `scal` is ignored); tables, alphas and scal are shared.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ilqr_batch_kernel(
+    const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ lz,
+    const T* __restrict__ lu, const T* __restrict__ lzz, const T* __restrict__ luu,
+    const T* __restrict__ luz, const T* __restrict__ Vz, const T* __restrict__ Vzz,
+    const T* __restrict__ zs, const T* __restrict__ us, const T* __restrict__ lams,
+    const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
+    const T* __restrict__ reg_b, T* __restrict__ zs_out, T* __restrict__ us_out,
+    T* __restrict__ cost_out, T* __restrict__ ok_out, int N, int L, int n_con, int n,
+    int substeps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t b = blockIdx.x;
+  const size_t zn = (size_t)(N + 1) * NZ, un = (size_t)N * NU;
+  ilqr_iteration(reinterpret_cast<T*>(smem_raw), A + b * N * NZ * NZ, B + b * N * NZ * NU,
+                 lz + b * N * NZ, lu + b * un, lzz + b * N * NZ * NZ, luu + b * N * NU * NU,
+                 luz + b * N * NU * NZ, Vz + b * NZ, Vzz + b * NZ * NZ, zs + b * zn,
+                 us + b * un, lams + b * (N + 1) * n_con, tables, alphas, scal, reg_b[b],
+                 zs_out + b * zn, us_out + b * un, cost_out + b, ok_out + b, N, L, n_con, n,
+                 substeps);
+}
+
+// Dynamic shared memory of one block (see the carve-up in ilqr_iteration),
+// or 0 if the sizes are not ones the kernels take.
+template <typename T>
+size_t smem_bytes(int N, int L, int n_con, int n, int substeps) {
+  if (N < 1 || L < 1 || L > THREADS || n < 2 || substeps < 1 ||
+      (n_con != N_CON && n_con != N_CON + 2)) {
+    return 0;
+  }
+  const size_t elems = NS + 4 * (size_t)n + NZ + 4 * NZ * NZ + NZ * NU + NZ + NU +
+                       NU * NU + NU * NZ + NZ + (size_t)N * NU + (size_t)N * NU * NZ +
+                       (size_t)(N + 1) * L * NZ + (size_t)N * L * NU + L;
+  return elems * sizeof(T);
+}
+
+// Above 48 KB a kernel needs its dynamic shared memory limit raised first.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <typename T>
 int launch(const T* A, const T* B, const T* lz, const T* lu, const T* lzz, const T* luu,
            const T* luz, const T* Vz, const T* Vzz, const T* zs, const T* us, const T* lams,
            const T* tables, const T* alphas, const T* scal, T* zs_out, T* us_out,
            T* cost_out, T* ok_out, int N, int L, int n_con, int n, int substeps,
            void* stream) {
-  if (N < 1 || L < 1 || L > THREADS || n < 2 || substeps < 1 ||
-      (n_con != N_CON && n_con != N_CON + 2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t elems = NS + 4 * (size_t)n + NZ + 4 * NZ * NZ + NZ * NU + NZ + NU +
-                       NU * NU + NU * NZ + NZ + (size_t)N * NU + (size_t)N * NU * NZ +
-                       (size_t)(N + 1) * L * NZ + (size_t)N * L * NU + L;
-  const size_t bytes = elems * sizeof(T);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(ilqr_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t bytes = smem_bytes<T>(N, L, n_con, n, substeps);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(ilqr_kernel<T>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   ilqr_kernel<T><<<1, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas, scal,
+      zs_out, us_out, cost_out, ok_out, N, L, n_con, n, substeps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_batch(const T* A, const T* B, const T* lz, const T* lu, const T* lzz,
+                 const T* luu, const T* luz, const T* Vz, const T* Vzz, const T* zs,
+                 const T* us, const T* lams, const T* tables, const T* alphas, const T* scal,
+                 const T* reg_b, T* zs_out, T* us_out, T* cost_out, T* ok_out, int Bt, int N,
+                 int L, int n_con, int n, int substeps, void* stream) {
+  const size_t bytes = smem_bytes<T>(N, L, n_con, n, substeps);
+  if (bytes == 0 || Bt < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(ilqr_batch_kernel<T>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ilqr_batch_kernel<T><<<Bt, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas, scal, reg_b,
       zs_out, us_out, cost_out, ok_out, N, L, n_con, n, substeps);
   return static_cast<int>(cudaGetLastError());
 }
@@ -487,4 +574,27 @@ extern "C" int lto_ilqr_backward_forward_f64(
   return launch<double>(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas,
                         scal, zs_out, us_out, cost_out, ok_out, N, L, n_con, n, substeps,
                         stream);
+}
+
+extern "C" int lto_ilqr_backward_forward_batch_f32(
+    const float* A, const float* B, const float* lz, const float* lu, const float* lzz,
+    const float* luu, const float* luz, const float* Vz, const float* Vzz, const float* zs,
+    const float* us, const float* lams, const float* tables, const float* alphas,
+    const float* scal, const float* reg_b, float* zs_out, float* us_out, float* cost_out,
+    float* ok_out, int Bt, int N, int L, int n_con, int n, int substeps, void* stream) {
+  return launch_batch<float>(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables,
+                             alphas, scal, reg_b, zs_out, us_out, cost_out, ok_out, Bt, N, L,
+                             n_con, n, substeps, stream);
+}
+
+extern "C" int lto_ilqr_backward_forward_batch_f64(
+    const double* A, const double* B, const double* lz, const double* lu, const double* lzz,
+    const double* luu, const double* luz, const double* Vz, const double* Vzz,
+    const double* zs, const double* us, const double* lams, const double* tables,
+    const double* alphas, const double* scal, const double* reg_b, double* zs_out,
+    double* us_out, double* cost_out, double* ok_out, int Bt, int N, int L, int n_con, int n,
+    int substeps, void* stream) {
+  return launch_batch<double>(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables,
+                              alphas, scal, reg_b, zs_out, us_out, cost_out, ok_out, Bt, N, L,
+                              n_con, n, substeps, stream);
 }

@@ -10,7 +10,9 @@ One iLQR iteration (`_iterate`) linearises the dynamics and
 quadraticises the AL cost stage-parallel in PyTorch, with analytic
 Jacobians, then runs the serial Riccati sweep and the line-search ladder in
 `ops.ilqr.backward_forward`: the hand-written CUDA kernel for CUDA tensors,
-its plain PyTorch twin for CPU tensors.
+its plain PyTorch twin for CPU tensors.  `solve_batch` solves B independent
+OCPs through the same code with a leading instance axis, one
+`ops.ilqr.backward_forward_batch` per iteration (`_iterate_batch`).
 
 Accept/reject, regularisation escalation and the multiplier update stay
 tensors combined with `torch.where`, so a solve makes no host sync and a
@@ -253,27 +255,31 @@ def _total_al_cost(model, p, zs, us, lams, rho):
     return torch.sum(stage, dim=-1) + al_terminal_cost(model, p, zs[..., -1, :], lams[..., -1, :], rho)
 
 
+# From here on, zs (..., N+1, NZ), us (..., N, NU) and lams (..., N+1, n_con)
+# may carry a leading instance axis: `solve_batch` goes through the same code.
 def _true_cost(model, p, zs, us):
-    return torch.sum(stage_cost(model, p, zs[:-1], us), dim=-1) + terminal_cost(model, p, zs[-1])
+    stage = torch.sum(stage_cost(model, p, zs[..., :-1, :], us), dim=-1)
+    return stage + terminal_cost(model, p, zs[..., -1, :])
 
 
 def _max_violation(model, p, zs, us):
-    g = constraints(model, p, zs[:-1], us)
-    g_term = constraints(model, p, zs[-1], zs.new_zeros(NU))
+    """Max constraint violation (true band) of each trajectory."""
+    g = constraints(model, p, zs[..., :-1, :], us)
+    g_term = constraints(model, p, zs[..., -1, :], zs.new_zeros(zs.shape[:-2] + (NU,)))
     g_term = torch.where(_state_row_mask(g_term.shape[-1], g.device), g_term, -torch.inf)
-    return torch.maximum(torch.max(g), torch.max(g_term))
+    return torch.maximum(torch.amax(g, dim=(-2, -1)), torch.amax(g_term, dim=-1))
 
 
 def _linearize_joint(model, cfg, zs, us):
-    """(A, B) of the augmented dynamics at every stage: (N, NZ, NZ) and
-    (N, NZ, NU).  x_next does not depend on u_prev, and u_prev' = u."""
-    N = us.shape[0]
-    _, J = model.step_and_jacobian(zs[:-1, :NX], us, cfg.dt, cfg.substeps)  # (N, NX, NX+NU)
-    A = zs.new_zeros((N, NZ, NZ))
-    A[:, :NX, :NX] = J[..., :NX]
-    B = zs.new_zeros((N, NZ, NU))
-    B[:, :NX] = J[..., NX:]
-    B[:, NX:] = torch.eye(NU, dtype=zs.dtype, device=zs.device)
+    """(A, B) of the augmented dynamics at every stage: (..., N, NZ, NZ) and
+    (..., N, NZ, NU).  x_next does not depend on u_prev, and u_prev' = u."""
+    lead = us.shape[:-1]  # (..., N)
+    _, J = model.step_and_jacobian(zs[..., :-1, :NX], us, cfg.dt, cfg.substeps)  # (..., N, NX, NX+NU)
+    A = zs.new_zeros(lead + (NZ, NZ))
+    A[..., :NX, :NX] = J[..., :NX]
+    B = zs.new_zeros(lead + (NZ, NU))
+    B[..., :NX, :] = J[..., NX:]
+    B[..., NX:, :] = torch.eye(NU, dtype=zs.dtype, device=zs.device)
     return A, B
 
 
@@ -358,9 +364,18 @@ def _terminal_quads_gauss_newton(model, p, z, lam, rho):
     """GN quadraticisation of the terminal cost (mterm + masked AL): the
     stage Jacobians at u = u_prev, restricted to the terminal residuals and
     to z; the masked input rows depend on u only, so their z-rows are 0."""
-    r, _, Jr, Jg = _stage_jacobians(model, p, z, z[NX:])
+    r, _, Jr, Jg = _stage_jacobians(model, p, z, z[..., NX:])
     g = _masked_terminal_constraints(model, p, z)
-    return _gn(r[:N_RES_TERM], g, Jr[:N_RES_TERM, :NZ], Jg[:, :NZ], lam, rho)
+    return _gn(r[..., :N_RES_TERM], g, Jr[..., :N_RES_TERM, :NZ], Jg[..., :NZ], lam, rho)
+
+
+def _kernel_inputs(model, p, cfg, zs, us, lams, rho):
+    """The iteration kernels' per-instance inputs, contiguous: stage
+    Jacobians A, B, the GN stage quads and the terminal quads."""
+    A, B = _linearize_joint(model, cfg, zs, us)
+    quads = _quads_gauss_newton(model, p, zs[..., :-1, :], us, lams[..., :-1, :], rho)
+    Vz, Vzz = _terminal_quads_gauss_newton(model, p, zs[..., -1, :], lams[..., -1, :], rho)
+    return [t.contiguous() for t in (A, B, *quads, Vz, Vzz)]
 
 
 def _iterate(model, p, cfg, zs, us, lams, rho, reg, tables, alphas, scal_tail):
@@ -368,20 +383,41 @@ def _iterate(model, p, cfg, zs, us, lams, rho, reg, tables, alphas, scal_tail):
     sweep + line-search ladder in `ops.ilqr.backward_forward`.  rho and reg
     stay 0-d device tensors: the kernel's scalar vector is spliced together
     on the device, so the loop uploads nothing."""
-    A, B = _linearize_joint(model, cfg, zs, us)
-    lz, lu, lzz, luu, luz = _quads_gauss_newton(model, p, zs[:-1], us, lams[:-1], rho)
-    Vz, Vzz = _terminal_quads_gauss_newton(model, p, zs[-1], lams[-1], rho)
     scal = torch.cat([rho.reshape(1), reg.reshape(1), scal_tail])
-    c = lambda t: t.contiguous()
     zs_new, us_new, new_cost, ok = ilqr.backward_forward(
-        c(A), c(B), c(lz), c(lu), c(lzz), c(luu), c(luz), c(Vz), c(Vzz),
-        c(zs), c(us), c(lams), tables, alphas, scal, substeps=cfg.substeps,
+        *_kernel_inputs(model, p, cfg, zs, us, lams, rho),
+        zs.contiguous(), us.contiguous(), lams.contiguous(), tables, alphas, scal,
+        substeps=cfg.substeps,
     )
     return new_cost, zs_new, us_new, ok < 0.5
 
 
-def solve(model, p, cfg: SolverConfig, z0, us_init, lam_init) -> SolveResult:
-    """Solve the horizon OCP from z0, warm-started at (us_init, lam_init)."""
+def _iterate_batch(model, p, cfg, zs, us, lams, rho, reg, tables, alphas, scal_tail):
+    """`_iterate` for a batch of OCPs (leading axis B on zs, us, lams and
+    reg): the serial part runs in `ops.ilqr.backward_forward_batch`, with
+    instance b at reg[b]; the reg slot of the shared scalar vector is unused."""
+    scal = torch.cat([rho.reshape(1), torch.zeros_like(rho).reshape(1), scal_tail])
+    zs_new, us_new, new_cost, ok = ilqr.backward_forward_batch(
+        *_kernel_inputs(model, p, cfg, zs, us, lams, rho),
+        zs.contiguous(), us.contiguous(), lams.contiguous(), tables, alphas, scal, reg,
+        substeps=cfg.substeps,
+    )
+    return new_cost, zs_new, us_new, ok < 0.5
+
+
+def _update_multipliers(model, p, zs, us, lams, rho):
+    """PHR multiplier update on the tightened band the AL optimises."""
+    g_stage = tightened_constraints(model, p, zs[..., :-1, :], us)
+    g_term = _masked_terminal_constraints(model, p, zs[..., -1, :])
+    g_all = torch.cat([g_stage, g_term.unsqueeze(-2)], dim=-2)
+    return torch.clamp(lams + rho * g_all, min=0.0)
+
+
+def _solve(model, p, cfg, z0, us_init, lam_init, iterate) -> SolveResult:
+    """The AL rounds around `iterate`, for one OCP (z0 (NZ,)) or a batch
+    (z0 (B, NZ)).  One rho schedule for all instances; accept/reject and reg
+    escalation are per instance, through `torch.where` on masks of z0's
+    leading shape, with no host sync."""
     if cfg.hessian_mode != "gauss_newton":
         raise NotImplementedError(f"hessian_mode={cfg.hessian_mode!r} is not ported yet")
     dtype, device = z0.dtype, z0.device
@@ -394,24 +430,20 @@ def solve(model, p, cfg: SolverConfig, z0, us_init, lam_init) -> SolveResult:
 
     for _ in range(cfg.al_iters):
         cost = _total_al_cost(model, p, zs, us, lams, rho)
-        reg = torch.full((), cfg.reg_init, dtype=dtype, device=device)
+        reg = torch.full(z0.shape[:-1], cfg.reg_init, dtype=dtype, device=device)
         for _ in range(cfg.ilqr_iters):
-            new_cost, zs_new, us_new, diverged = _iterate(
+            new_cost, zs_new, us_new, diverged = iterate(
                 model, p, cfg, zs, us, lams, rho, reg, tables, alphas, scal_tail
             )
             improved = (new_cost < cost) & ~diverged
-            zs = torch.where(improved, zs_new, zs)
-            us = torch.where(improved, us_new, us)
+            take = improved[..., None, None]
+            zs = torch.where(take, zs_new, zs)
+            us = torch.where(take, us_new, us)
             cost = torch.where(improved, new_cost, cost)
             # aggressive escalation: with few iLQR iterations per solve, a
             # rejected step must not burn the remaining budget at useless reg
             reg = torch.where(improved, torch.clamp(reg * 0.5, min=cfg.reg_init), reg * 100.0)
-
-        # multiplier + penalty update (on the tightened band the AL optimises)
-        g_stage = tightened_constraints(model, p, zs[:-1], us)
-        g_term = _masked_terminal_constraints(model, p, zs[-1])
-        g_all = torch.cat([g_stage, g_term[None]], dim=0)
-        lams = torch.clamp(lams + rho * g_all, min=0.0)
+        lams = _update_multipliers(model, p, zs, us, lams, rho)
         rho = rho * cfg.rho_scale
 
     return SolveResult(
@@ -419,3 +451,19 @@ def solve(model, p, cfg: SolverConfig, z0, us_init, lam_init) -> SolveResult:
         cost=_true_cost(model, p, zs, us),
         max_violation=_max_violation(model, p, zs, us),
     )
+
+
+def solve(model, p, cfg: SolverConfig, z0, us_init, lam_init) -> SolveResult:
+    """Solve the horizon OCP from z0 (NZ,), warm-started at us_init (N, NU)
+    and lam_init (N+1, n_con); each iLQR iteration is one launch of the
+    one-OCP kernel on CUDA tensors."""
+    return _solve(model, p, cfg, z0, us_init, lam_init, _iterate)
+
+
+def solve_batch(model, p, cfg: SolverConfig, z0_b, us_init_b, lam_init_b) -> SolveResult:
+    """Solve B independent horizon OCPs (leading axis B on every argument
+    and on every field of the result).  Per instance it is `solve`: the same
+    AL schedule, with per-instance step acceptance and reg escalation; each
+    iLQR iteration is one launch of the batch kernel for all B on CUDA
+    tensors."""
+    return _solve(model, p, cfg, z0_b, us_init_b, lam_init_b, _iterate_batch)

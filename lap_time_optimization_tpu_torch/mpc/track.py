@@ -94,6 +94,14 @@ class MPCTrack(nn.Module):
         """vref(s) (reference `velocities_interp`, src/mpc/track.py:39-42)."""
         return self._uinterp(s, self.vref_vals)
 
+    def position(self, s):
+        """Cartesian point (2, ...) and unit tangent (2, ...) of the path at
+        arc length s, by linear interpolation on `s_grid` (replay geometry)."""
+        sw = self._wrap(s)
+        interp = lambda row: spline.interp(sw, self.s_grid, row)
+        return (torch.stack([interp(self.path_xy[0]), interp(self.path_xy[1])]),
+                torch.stack([interp(self.path_tangent[0]), interp(self.path_tangent[1])]))
+
 
 def nearest_distances(path_xy: np.ndarray, boundary_xy: np.ndarray) -> np.ndarray:
     """min distance from each path point (2, n) to the boundary samples (2, m)."""

@@ -1,24 +1,29 @@
 """One fused AL-iLQR iteration: Riccati backward sweep + line-search ladder.
 
-Port of `lap_time_optimization_tpu/ops/pallas_ilqr.py::backward_forward`
-(the Pallas TPU kernel).  Two implementations with one signature:
+Port of two Pallas TPU kernels of `lap_time_optimization_tpu/ops/`:
+`pallas_ilqr.py::backward_forward` (one OCP) and
+`pallas_ilqr_batch.py::backward_forward_batch` (B independent OCPs, each
+with its own Levenberg reg).  Each has two implementations with one
+signature:
 
 * `csrc/ilqr.cu` — CUDA C++ for sm_90a, one thread block per OCP
   (see the note at the top of that file).  Compiled with `nvcc` at first
   use into `build/torch_kernels/`, keyed by a hash of the source and flags,
   and called through ctypes on PyTorch's current stream.
-* `backward_forward_reference` — the same computation in plain PyTorch:
-  the Riccati scan and the ladder of the JAX package's XLA path
-  (mpc/solver.py `_backward_pass` + `_forward_pass`).
+* `backward_forward_reference` / `backward_forward_batch_reference` — the
+  same computation in plain PyTorch (one function, `_reference`, over any
+  leading instance shape): the Riccati scan and the ladder of the JAX
+  package's XLA path (mpc/solver.py `_backward_pass` + `_forward_pass`).
 
-`backward_forward` dispatches on the tensors' device: CPU tensors go to the
-plain version, CUDA tensors to the kernel, which raises if it cannot be
-built or launched.  There is no fallback from CUDA to the plain version.
+`backward_forward` and `backward_forward_batch` dispatch on the tensors'
+device: CPU tensors go to the plain version, CUDA tensors to the kernel,
+which raises if it cannot be built or launched.  There is no fallback from
+CUDA to the plain version.
 
 Scalars ride in one vector `scal` (layout `SCAL_FIELDS`, the JAX kernel's
 plus `ptv`, the torque-vectoring gain: 0 when the model has torque
 vectoring off, so Mtv = ptv·(tan δ·vx/L − r) vanishes).  The constraint
-count (14, or 16 with the friction-ellipse rows) is `lams.shape[1]`.
+count (14, or 16 with the friction-ellipse rows) is `lams.shape[-1]`.
 """
 
 from __future__ import annotations
@@ -50,8 +55,10 @@ SCAL_FIELDS = (
 _S = {name: i for i, name in enumerate(SCAL_FIELDS)}
 NS = len(SCAL_FIELDS)
 
-#: Kernel launches so far; a run resets it to count its own.
+#: Launches of the one-OCP kernel and of the batch kernel so far; a run
+#: resets them to count its own.
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "ilqr.cu")
@@ -62,6 +69,8 @@ NVCC_FLAGS = (
 )
 _ENTRY = {torch.float32: "lto_ilqr_backward_forward_f32",
           torch.float64: "lto_ilqr_backward_forward_f64"}
+_ENTRY_BATCH = {torch.float32: "lto_ilqr_backward_forward_batch_f32",
+                torch.float64: "lto_ilqr_backward_forward_batch_f64"}
 _lib = None
 #: nvcc's output from the build in this process ("" if the library was cached).
 BUILD_LOG = ""
@@ -140,59 +149,85 @@ def _views(scal, tables, n_con):
     return model, p, f
 
 
-def backward_forward_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
-                               zs, us, lams, tables, alphas, scal, *, substeps: int):
-    """Plain PyTorch version of the kernel, same signature and semantics.
+def _reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas, scal,
+               reg, *, substeps: int):
+    """The iteration in plain PyTorch for any leading instance shape `lead`
+    (() for one OCP, (B,) for a batch): every per-instance argument carries
+    it, `reg` has shape `lead`, and tables, alphas and scal are shared.
 
     Riccati sweep with the closed-form 2×2 Quu inverse and Levenberg reg;
     `ok` is 0 once a feedforward gain is non-finite.  Then every ladder rung
     rolls out, its AL cost is summed, NaN costs count as +inf, and the
     lowest-index rung among the minimal costs is returned (`torch.argmin`
-    returns the first occurrence).  Returns (zs (N+1,NZ), us (N,NU), cost (),
-    ok ())."""
+    returns the first occurrence).  There is no Python loop over instances."""
     from lap_time_optimization_tpu_torch.mpc import solver
 
-    N = us.shape[0]
-    rho, reg = scal[_S["rho"]], scal[_S["reg"]]
-    I_u = torch.eye(NU, dtype=zs.dtype, device=zs.device)
-    ok = torch.ones((), dtype=torch.bool, device=zs.device)
+    N = us.shape[-2]
+    lead = us.shape[:-2]
+    rho = scal[_S["rho"]]
+    T = lambda M: M.transpose(-1, -2)
+    mv = lambda M, v: (M @ v.unsqueeze(-1)).squeeze(-1)
+    Quu_reg_diag = reg[..., None, None] * torch.eye(NU, dtype=zs.dtype, device=zs.device)
+    ok = torch.ones(lead, dtype=torch.bool, device=zs.device)
     ks, Ks = [None] * N, [None] * N
     for k in reversed(range(N)):
-        A_k, B_k = A[k], B[k]
-        Qz = lz[k] + A_k.T @ Vz
-        Qu = lu[k] + B_k.T @ Vz
-        Qzz = lzz[k] + A_k.T @ Vzz @ A_k
-        Quu = luu[k] + B_k.T @ Vzz @ B_k
-        Quz = luz[k] + B_k.T @ Vzz @ A_k
-        Quu_reg = Quu + reg * I_u
+        A_k, B_k = A[..., k, :, :], B[..., k, :, :]
+        Qz = lz[..., k, :] + mv(T(A_k), Vz)
+        Qu = lu[..., k, :] + mv(T(B_k), Vz)
+        Qzz = lzz[..., k, :, :] + T(A_k) @ Vzz @ A_k
+        Quu = luu[..., k, :, :] + T(B_k) @ Vzz @ B_k
+        Quz = luz[..., k, :, :] + T(B_k) @ Vzz @ A_k
+        Quu_reg = Quu + Quu_reg_diag
         # NU = 2: invert the control Hessian in closed form (det/adjugate)
-        a, b = Quu_reg[0, 0], Quu_reg[0, 1]
-        c, d = Quu_reg[1, 0], Quu_reg[1, 1]
+        a, b = Quu_reg[..., 0, 0], Quu_reg[..., 0, 1]
+        c, d = Quu_reg[..., 1, 0], Quu_reg[..., 1, 1]
         det = a * d - b * c
-        inv = torch.stack([torch.stack([d, -b]), torch.stack([-c, a])]) / det
-        kK = inv @ torch.cat([Qu[:, None], Quz], dim=1)
-        k_k, K_k = -kK[:, 0], -kK[:, 1:]
-        Vz = Qz + K_k.T @ Quu @ k_k + K_k.T @ Qu + Quz.T @ k_k
-        Vzz = Qzz + K_k.T @ Quu @ K_k + K_k.T @ Quz + Quz.T @ K_k
-        Vzz = 0.5 * (Vzz + Vzz.T)
-        ok = ok & torch.isfinite(k_k).all()
+        inv = torch.stack([torch.stack([d, -b], -1), torch.stack([-c, a], -1)], -2) / det[..., None, None]
+        kK = inv @ torch.cat([Qu.unsqueeze(-1), Quz], dim=-1)
+        k_k, K_k = -kK[..., 0], -kK[..., 1:]
+        Vz = Qz + mv(T(K_k) @ Quu, k_k) + mv(T(K_k), Qu) + mv(T(Quz), k_k)
+        Vzz = Qzz + T(K_k) @ Quu @ K_k + T(K_k) @ Quz + T(Quz) @ K_k
+        Vzz = 0.5 * (Vzz + T(Vzz))
+        ok = ok & torch.isfinite(k_k).all(dim=-1)
         ks[k], Ks[k] = k_k, K_k
 
-    model, p, f = _views(scal, tables, lams.shape[1])
+    model, p, f = _views(scal, tables, lams.shape[-1])
     L = alphas.shape[0]
-    z = zs[0].expand(L, NZ)
+    z = zs[..., :1, :].expand(lead + (L, NZ))
     z_rungs, u_rungs = [z], []
     for k in range(N):
-        u = us[k] + alphas[:, None] * ks[k] + (z - zs[k]) @ Ks[k].T
-        z = torch.cat([model.rk4(z[:, :NX], u, f["h"], substeps), u], dim=-1)
+        dz = z - zs[..., k:k + 1, :]
+        u = us[..., k:k + 1, :] + alphas[:, None] * ks[k].unsqueeze(-2) + dz @ T(Ks[k])
+        z = torch.cat([model.rk4(z[..., :NX], u, f["h"], substeps), u], dim=-1)
         z_rungs.append(z)
         u_rungs.append(u)
-    zs_b = torch.stack(z_rungs, dim=1)  # (L, N+1, NZ)
-    us_b = torch.stack(u_rungs, dim=1)  # (L, N, NU)
-    costs = solver._total_al_cost(model, p, zs_b, us_b, lams, rho)
+    zs_l = torch.stack(z_rungs, dim=-2)  # lead + (L, N+1, NZ)
+    us_l = torch.stack(u_rungs, dim=-2)  # lead + (L, N, NU)
+    costs = solver._total_al_cost(model, p, zs_l, us_l, lams.unsqueeze(-3), rho)  # lead + (L,)
     costs = torch.where(torch.isfinite(costs), costs, torch.inf)
-    best = torch.argmin(costs)
-    return zs_b[best], us_b[best], costs[best], ok.to(zs.dtype)
+    best = torch.argmin(costs, dim=-1, keepdim=True)
+    pick = lambda t: torch.take_along_dim(t, best[..., None, None], dim=-3).squeeze(-3)
+    cost = torch.take_along_dim(costs, best, dim=-1).squeeze(-1)
+    return pick(zs_l), pick(us_l), cost, ok.to(zs.dtype)
+
+
+def backward_forward_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
+                               zs, us, lams, tables, alphas, scal, *, substeps: int):
+    """Plain PyTorch version of the one-OCP kernel, same signature and
+    semantics (see `_reference`); reg is the `reg` entry of `scal`.
+    Returns (zs (N+1,NZ), us (N,NU), cost (), ok ())."""
+    return _reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas,
+                      scal, scal[_S["reg"]], substeps=substeps)
+
+
+def backward_forward_batch_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams,
+                                     tables, alphas, scal, reg_b, *, substeps: int):
+    """Plain PyTorch version of the batch kernel, same signature and
+    semantics (see `_reference`): instance b runs with reg = reg_b[b], and the
+    `reg` entry of `scal` is ignored.  Returns (zs (B,N+1,NZ), us (B,N,NU),
+    cost (B,), ok (B,))."""
+    return _reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas,
+                      scal, reg_b, substeps=substeps)
 
 
 # ------------------------------------------------------------------- kernel
@@ -228,15 +263,23 @@ def build():
         BUILD_LOG = proc.stdout + proc.stderr
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for entries, n_ptrs, n_ints in ((_ENTRY, 19, 5), (_ENTRY_BATCH, 20, 6)):
+        for name in entries.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
-def _check_inputs(tensors: dict, N: int, L: int, n_con: int, n_table: int, substeps: int):
+_SHARED = ("tables", "alphas", "scal")
+
+
+def _check_inputs(tensors: dict, N: int, L: int, n_con: int, n_table: int, substeps: int,
+                  batch: int | None = None):
+    """Raise on what the kernels do not take.  With `batch`, every argument
+    but the shared tables, alphas and scal has a leading axis of that size,
+    and `reg_b` has shape (batch,)."""
     ref = tensors["zs"]
     if ref.dtype not in _ENTRY:
         raise TypeError(f"the iLQR kernel takes float32 or float64, not {ref.dtype}")
@@ -246,6 +289,13 @@ def _check_inputs(tensors: dict, N: int, L: int, n_con: int, n_table: int, subst
         "Vz": (NZ,), "Vzz": (NZ, NZ), "zs": (N + 1, NZ), "us": (N, NU),
         "lams": (N + 1, n_con), "tables": (4, n_table), "alphas": (L,), "scal": (NS,),
     }
+    if batch is not None:
+        if batch < 1:
+            raise ValueError(f"unsupported batch size {batch}")
+        shapes = {k: v if k in _SHARED else (batch, *v) for k, v in shapes.items()}
+        shapes["reg_b"] = (batch,)
+    if set(tensors) != set(shapes):
+        raise ValueError(f"arguments {sorted(tensors)}, expected {sorted(shapes)}")
     for name, t in tensors.items():
         if t.device != ref.device or t.dtype != ref.dtype:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected {ref.dtype} on {ref.device}")
@@ -259,25 +309,30 @@ def _check_inputs(tensors: dict, N: int, L: int, n_con: int, n_table: int, subst
         raise ValueError(f"unsupported sizes N={N} L={L} n={n_table} substeps={substeps}")
 
 
-def _launch(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas, scal, *, substeps):
-    global LAUNCHES
-    inputs = dict(A=A, B=B, lz=lz, lu=lu, lzz=lzz, luu=luu, luz=luz, Vz=Vz, Vzz=Vzz,
-                  zs=zs, us=us, lams=lams, tables=tables, alphas=alphas, scal=scal)
-    N, L, n_con, n_table = us.shape[0], alphas.shape[0], lams.shape[-1], tables.shape[-1]
-    _check_inputs(inputs, N, L, n_con, n_table, substeps)
-    fn = getattr(build(), _ENTRY[zs.dtype])
-    zs_out = torch.empty((N + 1, NZ), dtype=zs.dtype, device=zs.device)
-    us_out = torch.empty((N, NU), dtype=zs.dtype, device=zs.device)
-    cost = torch.empty((), dtype=zs.dtype, device=zs.device)
-    ok = torch.empty((), dtype=zs.dtype, device=zs.device)
-    ptrs = [t.data_ptr() for t in (*inputs.values(), zs_out, us_out, cost, ok)]
+def _launch(inputs: dict, substeps: int, batch: int | None = None):
+    """Check `inputs` (in the C entry points' argument order), allocate the
+    outputs, launch the one-OCP kernel (`batch` None) or the batch kernel on
+    the current stream, and count the launch."""
+    global LAUNCHES, BATCH_LAUNCHES
+    zs, us, lams, tables, alphas = (inputs[k] for k in ("zs", "us", "lams", "tables", "alphas"))
+    N, L, n_con, n_table = us.shape[-2], alphas.shape[0], lams.shape[-1], tables.shape[-1]
+    _check_inputs(inputs, N, L, n_con, n_table, substeps, batch)
+    lead = () if batch is None else (batch,)
+    fn = getattr(build(), (_ENTRY if batch is None else _ENTRY_BATCH)[zs.dtype])
+    new = lambda *shape: torch.empty(lead + shape, dtype=zs.dtype, device=zs.device)
+    outs = (new(N + 1, NZ), new(N, NU), new(), new())
+    ptrs = [t.data_ptr() for t in (*inputs.values(), *outs)]
+    sizes = (N, L, n_con, n_table, substeps) if batch is None else (batch, N, L, n_con, n_table, substeps)
     with torch.cuda.device(zs.device):
         stream = torch.cuda.current_stream(zs.device).cuda_stream
-        rc = fn(*ptrs, N, L, n_con, n_table, substeps, stream)
+        rc = fn(*ptrs, *sizes, stream)
     if rc != 0:
         raise RuntimeError(f"iLQR kernel launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
-    return zs_out, us_out, cost, ok
+    if batch is None:
+        LAUNCHES += 1
+    else:
+        BATCH_LAUNCHES += 1
+    return outs
 
 
 def backward_forward(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
@@ -288,9 +343,35 @@ def backward_forward(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
     (4,n); ladder alphas (L,); scal (NS,).  Returns (zs_new, us_new, cost,
     ok) with ok = 1.0 while the backward pass stayed finite."""
     if zs.device.type == "cuda":
-        return _launch(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables,
-                       alphas, scal, substeps=substeps)
+        inputs = dict(A=A, B=B, lz=lz, lu=lu, lzz=lzz, luu=luu, luz=luz, Vz=Vz, Vzz=Vzz,
+                      zs=zs, us=us, lams=lams, tables=tables, alphas=alphas, scal=scal)
+        return _launch(inputs, substeps)
     if zs.device.type == "cpu":
         return backward_forward_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us,
                                           lams, tables, alphas, scal, substeps=substeps)
+    raise ValueError(f"no iLQR implementation for device {zs.device}")
+
+
+def backward_forward_batch(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
+                           zs, us, lams, tables, alphas, scal, reg_b, *, substeps: int):
+    """One fused iLQR iteration for B independent OCPs.  Batch-major
+    inputs: A (B,N,NZ,NZ), B (B,N,NZ,NU), lz (B,N,NZ), lu (B,N,NU),
+    lzz (B,N,NZ,NZ), luu (B,N,NU,NU), luz (B,N,NU,NZ), Vz (B,NZ),
+    Vzz (B,NZ,NZ), zs (B,N+1,NZ), us (B,N,NU), lams (B,N+1,n_con) and the
+    per-instance Levenberg reg_b (B,); shared: tables (4,n), alphas (L,) and
+    scal (NS,), whose `reg` entry is ignored.  Returns (zs_new (B,N+1,NZ),
+    us_new (B,N,NU), cost (B,), ok (B,)).
+
+    The whole table is read by every instance, so unlike the JAX package's
+    batch kernel there is no table window: instance b gives what
+    `backward_forward` gives on it with reg = reg_b[b]."""
+    if zs.device.type == "cuda":
+        inputs = dict(A=A, B=B, lz=lz, lu=lu, lzz=lzz, luu=luu, luz=luz, Vz=Vz, Vzz=Vzz,
+                      zs=zs, us=us, lams=lams, tables=tables, alphas=alphas, scal=scal,
+                      reg_b=reg_b)
+        return _launch(inputs, substeps, batch=zs.shape[0])
+    if zs.device.type == "cpu":
+        return backward_forward_batch_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us,
+                                                lams, tables, alphas, scal, reg_b,
+                                                substeps=substeps)
     raise ValueError(f"no iLQR implementation for device {zs.device}")

@@ -142,3 +142,24 @@ def test_brake_preview_envelope_equal(tracks, a_brake, vref_scale):
     out_got = torch_track.with_brake_preview(got, a_brake, vref_scale=vref_scale)
     np.testing.assert_array_equal(out_got.vref_vals.numpy(), np.asarray(out_ref.vref_vals))
     np.testing.assert_array_equal(out_got.k_vals.numpy(), got.k_vals.numpy())
+
+
+def test_position_and_replay_match(tracks):
+    """`MPCTrack.position` and the replay reconstruction
+    (`viz.visualiser.vehicle_positions`) on the port's own tables equal the
+    JAX package's on seeded states over two laps (rtol 1e-9: the tables
+    themselves agree to ~1e-13)."""
+    from lap_time_optimization_tpu.viz import visualiser as jax_vis
+    from lap_time_optimization_tpu_torch.viz import visualiser
+
+    ref, got = tracks
+    rng = np.random.default_rng(5)
+    states = np.zeros((200, 8))
+    states[:, 0] = rng.uniform(-5.0, 2.0 * float(ref.s_max), 200)
+    states[:, 1:5] = rng.normal(0.0, [0.5, 0.2, 8.0, 0.5], (200, 4))
+    pts, tans = got.position(torch.as_tensor(states[:, 0]))
+    ref_pts, ref_tans = ref.position(jnp.asarray(states[:, 0]))
+    np.testing.assert_allclose(pts.numpy(), np.asarray(ref_pts), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(tans.numpy(), np.asarray(ref_tans), rtol=1e-9, atol=1e-9)
+    for a, b in zip(visualiser.vehicle_positions(got, states), jax_vis.vehicle_positions(ref, states)):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
