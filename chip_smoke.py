@@ -3,37 +3,52 @@
 
     python3 chip_smoke.py [--steps 500] [--profile DIR]
 
-Drives the port's two NMPC paths through the entry points a user calls,
-after building the hand-written CUDA kernels from the sources in this
-checkout and holding each against its plain PyTorch twin on the card: the
-single-stream closed loop (`runner.closed_loop`: MX5 on buckmore, horizon
-10, float32, 500 control cycles) and the fleet of 32 independent closed
-loops (`runner.closed_loop_batch`: bench.py's batch, x0 tiled + 0.01·b,
-max(10, steps // 5) = 100 cycles, as bench.py:82 sets them).  Phases:
+Drives the port's paths through the entry points a user calls, after
+building the hand-written CUDA kernels from the sources in this checkout
+(one nvcc call) and holding each against its plain PyTorch twin on the
+card.  The NMPC paths: the single-stream closed loop (`runner.closed_loop`:
+MX5 on buckmore, horizon 10, float32, 500 control cycles) and the fleet of
+32 independent closed loops (`runner.closed_loop_batch`: bench.py's batch,
+x0 tiled + 0.01·b, max(10, steps // 5) = 100 cycles, as bench.py:82 sets
+them).  The racing-line searches: `global_search.nonlinear` and
+`global_search.bayesian` for tbr18 on buckmore at width 0.99, float32,
+seed 0, at their `Config()` budgets, on the fused route (kernel 3).
+Phases:
 
 1. versions, the card's name and power limit, TF32 off;
-2. build `csrc/ilqr.cu` (both kernels) with nvcc;
-3. kernel vs twin at the main paths' shapes from a real linearisation, for
-   14 and 16 constraint rows, float64 and float32, torque vectoring on:
-   the one-OCP kernel on three states, the batch kernel on 32 instances
-   spread over the lap with reg from 1e-6 to 1e2, and the batch kernel
-   against the one-OCP kernel on every instance; time per call of each
-   kernel and its twin;
+2. build `csrc/ilqr.cu` and `csrc/velocity.cu` (three kernels) with one
+   nvcc call, and print ptxas' registers and spills;
+3. kernels 1 and 2 vs their twins at the NMPC paths' shapes from a real
+   linearisation, for 14 and 16 constraint rows, float64 and float32,
+   torque vectoring on: the one-OCP kernel on three states, the batch
+   kernel on 32 instances spread over the lap with reg from 1e-6 to 1e2,
+   and the batch kernel against the one-OCP kernel on every instance;
+   kernel 3 vs its twin on 1024 real candidate geometries (closed,
+   B=1024, N=846; open, the first 300 samples; ragged B=160), tbr18 and
+   MX5, float64 and float32, and f64 `_batch_lap_times(solver="fused")` on
+   the card against the CPU; time per call of each kernel and its twin;
 4. single stream: a 5-cycle float64 closed loop on the card (kernel)
    against the same loop on the CPU (twin), then a short warm-up and the
    timed closed loop, whose kernel launches are counted;
 5. fleet: a 3-cycle float64 batched loop (4 instances) on the card against
    the CPU, then the timed 32-instance loop, with its launches counted;
-6. the summary lines; the last one is {"ok": true, "device": {...}}.
+6. nonlinear search: the 1024-candidate selection timed alone, then the
+   whole search, its lap by the scan oracle gated below the published
+   36.178 s × 1.01 and its kernel launches counted (1);
+7. Bayesian search: the whole search, gated below 36.227 s × 1.01, with
+   1 + rounds kernel-3 launches;
+8. the summary lines; the last one is {"ok": true, "device": {...}}.
 
-Any failure raises, so the exit code is non-zero and no result line is
-printed.  Without a CUDA device, or without the package beside it, the
-script exits non-zero as well.
+Every path is driven with all launch counts set to 0 just before it and
+read just after.  Any failure raises, so the exit code is non-zero and no
+result line is printed.  Without a CUDA device, or without the package
+beside it, the script exits non-zero as well.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -62,6 +77,33 @@ BATCH = 32  # the fleet of bench.py's context line (bench.py:79-83)
 # gate (< 1e-2) therefore holds the first 26 instances; every instance is
 # held to finite states and monotone progress, and the others are printed.
 FLEET_IN_BAND = 26
+# The racing-line searches: tbr18 on buckmore at width 0.99, the width the
+# reference README's search laps were produced at, gated at the published
+# lap × 1.01 as tests/test_gp.py:81,88 gate the JAX package: the nonlinear
+# search on the scan oracle's lap of its answer, the Bayesian search on the
+# lap it returns (its dataset's best), as tests/test_gp.py:88 does.  The
+# Bayesian answer is an L-BFGS polish of the "assoc" objective, which reads
+# ~0.09 s faster than the scan oracle at such polished lines; both laps are
+# printed.
+WIDTH = 0.99
+GATE_NONLINEAR = 36.178 * 1.01
+GATE_BAYES = 36.227 * 1.01
+K3_BATCH = 1024  # Config().nonlinear.n_random, the selection's batch
+# Kernel 3 vs its twin, max |d| / max(1, |ref|): both round every product
+# and root on its own (the kernel uses no fused multiply-add), so float64
+# agrees to roundoff; float32 is held to 1e-5.  The card's f64
+# `_batch_lap_times(solver="fused")` is held to the CPU's at 1e-8 relative:
+# PyTorch's CPU float64 sqrt is not correctly rounded (one ulp off on ~1% of
+# inputs), and near the friction circle's saturation sqrt(f_cap² − f_lat²)
+# turns one ulp into ~1e-9 of the profile.
+K3_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+LAP_TOL_F64 = 1e-8
+# The least time of a kernel: the larger of its bytes (each input read once,
+# each output written once) over the H100 SXM's 3.35 TB/s and its
+# operations over 67 TFLOP/s, its float32 rate outside the tensor cores
+# (NVIDIA's H100 SXM data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def nvidia_smi() -> str:
@@ -70,6 +112,89 @@ def nvidia_smi() -> str:
         check=True, capture_output=True, text=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts():
+    from lap_time_optimization_tpu_torch.ops import ilqr, velocity_batch
+
+    ilqr.LAUNCHES = ilqr.BATCH_LAUNCHES = velocity_batch.LAUNCHES = 0
+
+
+def read_counts():
+    """(kernel 1, kernel 2, kernel 3) launches since the last reset."""
+    from lap_time_optimization_tpu_torch.ops import ilqr, velocity_batch
+
+    return ilqr.LAUNCHES, ilqr.BATCH_LAUNCHES, velocity_batch.LAUNCHES
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: int, flops: float):
+    """(least time in ms, what sets it) for `n_bytes` moved and `flops` done."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ilqr_flops(N: int, L: int) -> int:
+    """Operations of one AL-iLQR iteration for one OCP, counted from the
+    loops of csrc/ilqr.cu (a libdevice trig call counted as one): per
+    stage ~7,300 in the Riccati sweep (the 10×10 products of Qzz, Quu, Quz
+    and the value update) and ~1,000 per ladder rung (2 RK4 substeps of
+    4 right-hand sides, the feedback law and the AL stage cost)."""
+    return N * (7300 + 1000 * L)
+
+
+def velocity_flops(B: int, N: int, pacejka: bool) -> int:
+    """Operations of the velocity profile, one pass of each sweep, counted
+    from csrc/velocity.cu: per sample 3 for each lateral limit, 9 for each
+    traction, 35 for the 7-knot clamp-sum engine (3 for Pacejka's), 7 for
+    each reach, 5 for each select and ds, and the final min."""
+    return B * N * (53 if pacejka else 85)
+
+
+def search_setup(device, dtype):
+    """Buckmore at width 0.99 and the tbr18 and MX5 vehicles, on `device`."""
+    from lap_time_optimization_tpu_torch.models import load_vehicle
+    from lap_time_optimization_tpu_torch.track import Track
+
+    track = Track.load(os.path.join(ROOT, "data", "tracks", "buckmore.json"), WIDTH)
+    return (track.to(device, dtype), load_vehicle("tbr18").to(device, dtype),
+            load_vehicle("MX5").to(device, dtype))
+
+
+def lap_report(track, veh, x):
+    """The lap of alphas x by the scan oracle in the search's float32 (the
+    gated lap), by "assoc" (the objective the refinement descends), and by
+    the scan oracle in float64."""
+    from lap_time_optimization_tpu_torch.optim import global_search as gs
+
+    with torch.no_grad():
+        oracle = float(gs.evaluate_decongested(track, veh, x)[0])
+        assoc = float(gs.decongested_lap_time(track, veh, x, "assoc"))
+        track64, veh64 = (copy.deepcopy(m).double() for m in (track, veh))
+        oracle64 = float(gs.evaluate_decongested(track64, veh64, x.double())[0])
+    return oracle, f"scan-oracle lap {oracle:.4f} s (assoc {assoc:.4f} s, float64 scan {oracle64:.4f} s)"
+
+
+def check_velocity(label, veh, s, k, s_max, closed, tol):
+    """Gate kernel 3 against its twin on one input; returns max |d|."""
+    from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
+
+    got = vb.solve_profile_batch(veh, s, k, s_max, closed)
+    ref = vb.solve_profile_batch_reference(veh, s, k, s_max, closed)
+    torch.cuda.synchronize()
+    nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
+    fin = torch.isfinite(ref)
+    d = (got - ref).abs()[fin]
+    rel = float((d / ref.abs()[fin].clamp(min=1.0)).max())
+    ab = float(d.max())
+    print(f"{label}: max |d|/max(1,|ref|) = {rel:.3e} (tol {tol:g}); max |d| {ab:.3e}; "
+          f"NaN rows equal {nan_same} ({int((~fin).any(dim=1).sum())} NaN rows)")
+    if not (got.shape == ref.shape and rel <= tol and nan_same):
+        raise AssertionError(f"{label}: kernel 3 disagrees")
+    return ab
 
 
 def load_main_path(device, dtype, tv=False, te=False):
@@ -196,7 +321,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from lap_time_optimization_tpu_torch.mpc import runner
     from lap_time_optimization_tpu_torch.mpc.solver import SolverConfig
-    from lap_time_optimization_tpu_torch.ops import ilqr
+    from lap_time_optimization_tpu_torch.ops import _build, ilqr, spline
+    from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
+    from lap_time_optimization_tpu_torch.optim import global_search as gs
+    from lap_time_optimization_tpu_torch.utils.config import Config
 
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -209,8 +337,9 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- phase 2
     t0 = time.perf_counter()
     ilqr.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s")
-    for line in ilqr.BUILD_LOG.splitlines():
+    vb.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s (one nvcc call for {len(_build.SOURCES)} sources)")
+    for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  nvcc: {line.strip()}")
 
@@ -257,6 +386,49 @@ def main(argv=None) -> int:
     batch_twin_ms = cuda_ms(lambda: ilqr.backward_forward_batch_reference(*inp, reg_b, substeps=sub), 20)
     print(f"batch kernel per call at B={BATCH} N=10 L=6 substeps=2 n=846 f32: kernel {batch_ms:.4f} ms, "
           f"twin {batch_twin_ms:.4f} ms")
+    one_out = (cfg.horizon + 1) * ilqr.NZ + cfg.horizon * ilqr.NU + 2  # zs, us, cost, ok
+    k1_bound = bound_ms(nbytes(*kernel_inputs(model, p, cfg, runner.X0_REFERENCE, 0.0, 0))
+                        + 4 * one_out, ilqr_flops(cfg.horizon, cfg.n_linesearch))
+    k2_bound = bound_ms(nbytes(*inp, reg_b) + 4 * BATCH * one_out,
+                        BATCH * ilqr_flops(cfg.horizon, cfg.n_linesearch))
+    print(f"bounds: kernel 1 {k1_bound[0] * 1e3:.4f} us ({k1_bound[1]}), kernel 2 at B={BATCH} "
+          f"{k2_bound[0] * 1e3:.4f} us ({k2_bound[1]})")
+
+    # kernel 3 on 1024 real candidate geometries (tridiag fit, as the fused route)
+    n_dec = search_setup("cpu", torch.float64)[0].n_decongested
+    alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
+    worst_k3_abs = 0.0
+    for dtype in (torch.float64, torch.float32):
+        track, tbr18, mx5 = search_setup(device, dtype)
+        alphas = torch.as_tensor(alphas_np, dtype=dtype, device=device)
+        with torch.no_grad():
+            s_b, k_b, len_b = gs._geometry(track, alphas, spline.FIT_METHOD_CLOSED_BATCHED)
+        s_n = s_b[:, :-1]
+        n_samp = k_b.shape[1]
+        for name, veh in (("tbr18", tbr18), ("MX5", mx5)):
+            tag = f"kernel 3 vs twin {str(dtype)[6:]} {name}"
+            tol = K3_TOL[dtype]
+            errs = [check_velocity(f"{tag} closed B={K3_BATCH} N={n_samp}", veh, s_n, k_b, len_b, True, tol),
+                    check_velocity(f"{tag} open B={K3_BATCH} N=300", veh, s_n[:, :300],
+                                   k_b[:, :300].contiguous(), len_b, False, tol),
+                    check_velocity(f"{tag} closed ragged B=160 N={n_samp}", veh, s_n[:160], k_b[:160],
+                                   len_b[:160], True, tol)]
+            if dtype == torch.float32:
+                worst_k3_abs = max(worst_k3_abs, *errs)
+        if dtype == torch.float64:
+            cpu_track, cpu_tbr18, _ = search_setup("cpu", dtype)
+            got = gs._batch_lap_times(track, tbr18, alphas[:16], "fused").cpu()
+            ref = gs._batch_lap_times(cpu_track, cpu_tbr18, alphas[:16].cpu(), "fused")
+            rel = float(((got - ref).abs() / ref.abs()).max())
+            print(f"f64 _batch_lap_times(solver='fused') of 16 candidates, card (kernel) vs CPU (twin): "
+                  f"max |d|/|ref| = {rel:.3e} (tol {LAP_TOL_F64:g}); laps {ref.min():.4f}-{ref.max():.4f} s")
+            if not rel <= LAP_TOL_F64:
+                raise AssertionError("fused lap times on the card disagree with the CPU")
+    k3_ms = cuda_ms(lambda: vb.solve_profile_batch(tbr18, s_n, k_b, len_b, True), 200)
+    k3_twin_ms = cuda_ms(lambda: vb.solve_profile_batch_reference(tbr18, s_n, k_b, len_b, True), 2)
+    k3_bound = bound_ms(4 * (3 * K3_BATCH * n_samp + K3_BATCH), velocity_flops(K3_BATCH, n_samp, False))
+    print(f"kernel 3 per call at B={K3_BATCH} N={n_samp} f32 tbr18 closed: kernel {k3_ms:.4f} ms, "
+          f"twin {k3_twin_ms:.4f} ms, bound {k3_bound[0] * 1e3:.3f} us ({k3_bound[1]})")
 
     # ---------------------------------------------------------------- phase 4
     x0_np = runner.X0_REFERENCE
@@ -272,12 +444,12 @@ def main(argv=None) -> int:
     x0 = torch.as_tensor(x0_np, dtype=torch.float32, device=device)
     runner.closed_loop(model, p, cfg, x0, 3)  # warm-up: allocator, cuBLAS handles
     torch.cuda.synchronize()
-    ilqr.LAUNCHES = ilqr.BATCH_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     sim = runner.closed_loop(model, p, cfg, x0, args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, stray = ilqr.LAUNCHES, ilqr.BATCH_LAUNCHES
+    launches, stray, stray3 = read_counts()
     xs = sim.xs.cpu().numpy()
     applied = runner.applied_violation(model, p, sim)
     viols = sim.violations.cpu().numpy()
@@ -289,9 +461,9 @@ def main(argv=None) -> int:
           f"{float(viols.max()):.3e} over all (step {int(viols.argmax())}); "
           f"kernel launches {launches} ({launches / (args.steps + 2):.1f} per control cycle)")
     expected = (args.steps + 2) * cfg.al_iters * cfg.ilqr_iters
-    if launches != expected or stray != 0:
+    if launches != expected or stray != 0 or stray3 != 0:
         raise AssertionError(f"{launches} kernel launches, expected {expected}; "
-                             f"{stray} batch-kernel launches, expected 0")
+                             f"{stray} batch-kernel and {stray3} kernel-3 launches, expected 0")
     if xs.shape != (args.steps + 1, 8) or not np.all(np.isfinite(xs)):
         raise AssertionError("closed-loop states are not finite or of the wrong shape")
     if not np.all(np.diff(xs[:, 0]) > 0):
@@ -317,12 +489,12 @@ def main(argv=None) -> int:
     x0b = torch.as_tensor(x0b_np, dtype=torch.float32, device=device)
     runner.closed_loop_batch(model, p, cfg, x0b, 2)  # warm-up at B=32
     torch.cuda.synchronize()
-    ilqr.LAUNCHES = ilqr.BATCH_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     fleet = runner.closed_loop_batch(model, p, cfg, x0b, batch_steps)
     torch.cuda.synchronize()
     bwall = time.perf_counter() - t0
-    batch_launches, stray = ilqr.BATCH_LAUNCHES, ilqr.LAUNCHES
+    stray, batch_launches, stray3 = read_counts()
     bxs = fleet.xs.cpu().numpy()
     per = [runner.applied_violation(model, p, runner.SimResult(*(a[b] for a in fleet)))
            for b in range(BATCH)]
@@ -337,9 +509,9 @@ def main(argv=None) -> int:
           f"batch-kernel launches {batch_launches} ({batch_launches / (batch_steps + 2):.1f} "
           f"per control cycle), one-OCP kernel launches {stray}")
     expected = (batch_steps + 2) * cfg.al_iters * cfg.ilqr_iters
-    if batch_launches != expected or stray != 0:
+    if batch_launches != expected or stray != 0 or stray3 != 0:
         raise AssertionError(f"{batch_launches} batch-kernel launches, expected {expected}; "
-                             f"{stray} one-OCP kernel launches, expected 0")
+                             f"{stray} one-OCP kernel and {stray3} kernel-3 launches, expected 0")
     if bxs.shape != (BATCH, batch_steps + 1, 8) or not np.all(np.isfinite(bxs)):
         raise AssertionError("fleet states are not finite or of the wrong shape")
     if not np.all(np.diff(bxs[:, :, 0], axis=1) > 0):
@@ -352,25 +524,101 @@ def main(argv=None) -> int:
                        "ilqr_batch_kernel", args.profile, 1e3 * bwall / batch_steps)
 
     # ---------------------------------------------------------------- phase 6
-    source = "lap_time_optimization_tpu_torch/csrc/ilqr.cu"
+    conf = Config()
+    nl, bo = conf.nonlinear, conf.bayes
+    track, tbr18, _ = search_setup(device, torch.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    cands = gs._uniform(gen, (nl.n_random, track.n_decongested), track)  # nonlinear's own draw
+    gs._nonlinear_select(track, tbr18, cands, nl.n_refine, "fused")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel_times = gs._nonlinear_select(track, tbr18, cands, nl.n_refine, "fused")[0]
+    torch.cuda.synchronize()
+    sel_s = time.perf_counter() - t0
+    print(f"nonlinear selection alone: {nl.n_random} candidates f32 in {1e3 * sel_s:.2f} ms = "
+          f"{nl.n_random / sel_s:.0f} candidates/s; best {float(sel_times.min()):.3f} s, "
+          f"{int(torch.isinf(sel_times).sum())} non-finite")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    best_x, best_f = gs.nonlinear(track, tbr18, seed=0, n_random=nl.n_random, n_refine=nl.n_refine,
+                                  max_iter=nl.max_iter, solver="fused")
+    torch.cuda.synchronize()
+    nl_wall = time.perf_counter() - t0
+    nl_counts = read_counts()
+    nl_lap, laps = lap_report(track, tbr18, best_x)
+    print(f"nonlinear (tbr18, buckmore {WIDTH}, f32, seed 0, {nl.n_random} random, {nl.n_refine} refined, "
+          f"{nl.max_iter} iterations, fused): {nl_wall:.2f} s; search lap {best_f:.4f} s, {laps} "
+          f"(gate {GATE_NONLINEAR:.3f}); launches (kernel 1, 2, 3) {nl_counts}")
+    if nl_counts != (0, 0, 1):
+        raise AssertionError(f"nonlinear launches {nl_counts}, expected (0, 0, 1)")
+    if not (np.isfinite(nl_lap) and np.isfinite(best_f)):
+        raise AssertionError("nonlinear lap is not finite")
+    if not nl_lap < GATE_NONLINEAR:
+        raise AssertionError(f"nonlinear lap {nl_lap:.4f} s above its gate {GATE_NONLINEAR:.3f} s")
+
+    # ---------------------------------------------------------------- phase 7
+    reset_counts()
+    t0 = time.perf_counter()
+    bo_x, bo_f, info = gs.bayesian(
+        track, tbr18, seed=0, n_init=bo.n_init, n_local=bo.n_local, n_uniform=bo.n_uniform,
+        max_rounds=bo.max_rounds, sigma_window=bo.sigma_window, sigma_tol=bo.sigma_tol,
+        min_samples=bo.min_samples, polish_every=bo.polish_every, polish_iters=bo.polish_iters,
+        solver="fused")
+    torch.cuda.synchronize()
+    bo_wall = time.perf_counter() - t0
+    bo_counts = read_counts()
+    bo_lap, laps = lap_report(track, tbr18, bo_x)
+    print(f"bayesian (tbr18, buckmore {WIDTH}, f32, seed 0, n_init {bo.n_init}, {bo.n_local}+{bo.n_uniform} "
+          f"per round, up to {bo.max_rounds} rounds, {bo.polish_iters} polish iterations, fused): "
+          f"{bo_wall:.2f} s; {info['rounds']} rounds, {info['n_samples']} samples; timings "
+          f"{json.dumps(info['timings'])}; search lap {bo_f:.4f} s, {laps} "
+          f"(gate {GATE_BAYES:.3f}); launches (kernel 1, 2, 3) {bo_counts}")
+    if bo_counts != (0, 0, 1 + info["rounds"]):
+        raise AssertionError(f"bayesian launches {bo_counts}, expected (0, 0, {1 + info['rounds']})")
+    if not (np.isfinite(bo_lap) and np.isfinite(bo_f)):
+        raise AssertionError("bayesian lap is not finite")
+    if not bo_f < GATE_BAYES:
+        raise AssertionError(f"bayesian lap {bo_f:.4f} s above its gate {GATE_BAYES:.3f} s")
+
+    # ---------------------------------------------------------------- phase 8
     print(json.dumps({"kernels": [{
         "name": "ilqr_backward_forward",
         "route": "cuda",
-        "source": source,
+        "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr.py:471",
         "launches": launches,
         "max_abs_err": worst_f32_abs[0],
         "ms": kernel_ms,
         "plain_ms": twin_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
     }, {
         "name": "ilqr_backward_forward_batch",
         "route": "cuda",
-        "source": source,
+        "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr_batch.py:444",
         "launches": batch_launches,
         "max_abs_err": worst_f32_abs[1],
         "ms": batch_ms,
         "plain_ms": batch_twin_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "velocity_profile_batch",
+        "route": "cuda",
+        "source": "lap_time_optimization_tpu_torch/csrc/velocity.cu",
+        "replaces": "lap_time_optimization_tpu/ops/pallas_velocity.py:229",
+        "launches": nl_counts[2] + bo_counts[2],
+        "max_abs_err": worst_k3_abs,
+        "ms": k3_ms,
+        "plain_ms": k3_twin_ms,
+        "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1],
+        "library_ms": None,
     }]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

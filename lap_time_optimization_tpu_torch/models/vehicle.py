@@ -28,8 +28,10 @@ def _register(module: nn.Module, values: dict) -> None:
 
 
 def _sqrt_or_zero(slack: torch.Tensor) -> torch.Tensor:
-    """sqrt(slack) where positive, else 0 (the saturated friction branch)."""
-    safe = torch.clamp(slack, min=1e-12)
+    """sqrt(slack) where positive, else 0 (the saturated friction branch).
+    `torch.maximum`, as `jnp.maximum` in the JAX package, splits the gradient
+    at a tie where `clamp` would pass all of it."""
+    safe = torch.maximum(slack, torch.full_like(slack, 1e-12))
     return torch.where(slack > 0.0, torch.sqrt(safe), torch.zeros_like(safe))
 
 

@@ -7,9 +7,9 @@ with its own Levenberg reg).  Each has two implementations with one
 signature:
 
 * `csrc/ilqr.cu` — CUDA C++ for sm_90a, one thread block per OCP
-  (see the note at the top of that file).  Compiled with `nvcc` at first
-  use into `build/torch_kernels/`, keyed by a hash of the source and flags,
-  and called through ctypes on PyTorch's current stream.
+  (see the note at the top of that file).  Compiled with the port's other
+  kernels by one `nvcc` call at first use (`ops/_build.py`), and called
+  through ctypes on PyTorch's current stream.
 * `backward_forward_reference` / `backward_forward_batch_reference` — the
   same computation in plain PyTorch (one function, `_reference`, over any
   leading instance shape): the Riccati scan and the ladder of the JAX
@@ -28,14 +28,11 @@ count (14, or 16 with the friction-ellipse rows) is `lams.shape[-1]`.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from types import SimpleNamespace
 
 import torch
+
+from lap_time_optimization_tpu_torch.ops import _build
 
 NX = 8
 NU = 2
@@ -60,20 +57,11 @@ NS = len(SCAL_FIELDS)
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "ilqr.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _ENTRY = {torch.float32: "lto_ilqr_backward_forward_f32",
           torch.float64: "lto_ilqr_backward_forward_f64"}
 _ENTRY_BATCH = {torch.float32: "lto_ilqr_backward_forward_batch_f32",
                 torch.float64: "lto_ilqr_backward_forward_batch_f64"}
 _lib = None
-#: nvcc's output from the build in this process ("" if the library was cached).
-BUILD_LOG = ""
 
 
 # ------------------------------------------------------------------ packing
@@ -231,45 +219,16 @@ def backward_forward_batch_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, u
 
 
 # ------------------------------------------------------------------- kernel
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME:
-        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.isfile(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA iLQR kernel cannot be built")
-    return found
-
-
 def build():
-    """Compile `csrc/ilqr.cu` (once per source hash) and load it."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"ilqr_{key}.so")
-    if not os.path.isfile(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        BUILD_LOG = proc.stdout + proc.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    for entries, n_ptrs, n_ints in ((_ENTRY, 19, 5), (_ENTRY_BATCH, 20, 6)):
-        for name in entries.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    """Build the kernel library (`ops/_build.py`, one nvcc call for every
+    source) and bind the iLQR entry points."""
+    global _lib
+    if _lib is None:
+        lib = _build.load()
+        _build.bind(lib, _ENTRY.values(), 19, 5)
+        _build.bind(lib, _ENTRY_BATCH.values(), 20, 6)
+        _lib = lib
+    return _lib
 
 
 _SHARED = ("tables", "alphas", "scal")

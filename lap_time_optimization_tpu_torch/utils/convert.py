@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lap_time_optimization_tpu_torch import track as race_track
 from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
 from lap_time_optimization_tpu_torch.models.vehicle import PacejkaVehicle
 from lap_time_optimization_tpu_torch.mpc.solver import OCPParams
@@ -31,6 +32,16 @@ def _cast(module, d: dict, names):
 def vehicle_from_numpy(d: dict) -> PacejkaVehicle:
     return _cast(PacejkaVehicle(name=str(d.get("name", "")), **_floats(d, PacejkaVehicle.FIELDS)),
                  d, PacejkaVehicle.FIELDS)
+
+
+def race_track_from_numpy(d: dict) -> race_track.Track:
+    """The racing-line `Track` from the JAX `Track`'s fields: the geometry
+    arrays plus `closed`, `size`, `ns`, `name` and `decongest_stride`."""
+    return _cast(race_track.Track(closed=bool(d["closed"]), size=int(d["size"]), ns=int(d["ns"]),
+                                  name=str(d.get("name", "")),
+                                  decongest_stride=int(d.get("decongest_stride", 3)),
+                                  **_floats(d, race_track.FIELDS)),
+                 d, race_track.FIELDS)
 
 
 def track_from_numpy(d: dict) -> MPCTrack:
