@@ -5,8 +5,8 @@
 
 Drives the port's paths through the entry points a user calls, after
 building the hand-written CUDA kernels from the sources in this checkout
-(one nvcc call) and holding each against its plain PyTorch twin on the
-card.  The NMPC paths: the single-stream closed loop (`runner.closed_loop`:
+(one nvcc call) and holding each against its plain PyTorch version on
+the card.  The NMPC paths: the single-stream closed loop (`runner.closed_loop`:
 MX5 on buckmore, horizon 10, float32, 500 control cycles) and the fleet of
 32 independent closed loops (`runner.closed_loop_batch`: bench.py's batch,
 x0 tiled + 0.01·b, max(10, steps // 5) = 100 cycles, as bench.py:82 sets
@@ -16,22 +16,27 @@ seed 0, at their `Config()` budgets, on the fused route (kernel 3).
 Phases:
 
 1. versions, the card's name and power limit, TF32 off;
-2. build `csrc/ilqr.cu` and `csrc/velocity.cu` (three kernels) with one
+2. build `csrc/ilqr.cu` and `csrc/velocity.cu` (two kernels) with one
    nvcc call, and print ptxas' registers and spills;
-3. kernels 1 and 2 vs their twins at the NMPC paths' shapes from a real
-   linearisation, for 14 and 16 constraint rows, float64 and float32,
-   torque vectoring on: the one-OCP kernel on three states, the batch
-   kernel on 32 instances spread over the lap with reg from 1e-6 to 1e2,
-   and the batch kernel against the one-OCP kernel on every instance;
+3. the solve kernel (the whole AL-iLQR solve, kernels 1-2 of the JAX
+   package and the eager code around them) vs the plain solve on the card
+   at the NMPC paths' shapes, for 14 and 16 constraint rows, float64 and
+   float32, torque vectoring on: three single states with seeded warm
+   starts and multipliers, 32 instances spread over the lap, and every
+   instance of the batch against its own B=1 launch, bit for bit; the
+   solve kernel timed at B = 1, 32 and 1024 with 1, 2 and 4 OCPs per
+   block, and the plain solve; at B=1 also without iLQR iterations and
+   with 1 RK4 substep, to split the solve's time;
    kernel 3 vs its twin on 1024 real candidate geometries (closed,
    B=1024, N=846; open, the first 300 samples; ragged B=160), tbr18 and
    MX5, float64 and float32, and f64 `_batch_lap_times(solver="fused")` on
    the card against the CPU; time per call of each kernel and its twin;
-4. single stream: a 5-cycle float64 closed loop on the card (kernel)
-   against the same loop on the CPU (twin), then a short warm-up and the
-   timed closed loop, whose kernel launches are counted;
+4. single stream: a 5-cycle float64 closed loop on the card (solve kernel)
+   against the same loop on the CPU (plain solve), then a short warm-up and the
+   timed closed loop, whose solve launches are counted (one per cycle);
 5. fleet: a 3-cycle float64 batched loop (4 instances) on the card against
-   the CPU, then the timed 32-instance loop, with its launches counted;
+   the CPU, then the timed 32-instance loop, with its launches counted
+   (one per cycle);
 6. nonlinear search: the 1024-candidate selection timed alone, then the
    whole search, its lap by the scan oracle gated below the published
    36.178 s × 1.01 and its kernel launches counted (1);
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -59,7 +65,14 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-F64_TOL, F32_TOL = 1e-10, 1e-4
+# The solve kernel vs the plain solve, max |d| / max(1, |ref|) per output:
+# 1e-9 in float64; in float32 1e-4 for us, zs, cost and max_violation (the
+# JAX tests' tolerance for two implementations of one solve) and 2e-3 for
+# the multipliers: lam = max(0, lam + rho g) turns a state difference d into
+# rho·d (rho = 100 in the last round); on an H100 the kernel reads up to
+# 5.6e-4 there, and the plain float32 solve itself lies up to 7.1e-3 from
+# the float64 one on the same inputs (both printed below).
+SOLVE_F64_TOL, SOLVE_F32_TOL, SOLVE_F32_LAM_TOL = 1e-9, 1e-4, 2e-3
 # The predicted-horizon violation is gated < 0.02 over the first 25 cycles,
 # the window tests/test_mpc.py gates for the JAX package.  Over a whole
 # 500-cycle lap the predicted tails of the JAX package's own closed loop
@@ -117,14 +130,14 @@ def nvidia_smi() -> str:
 def reset_counts():
     from lap_time_optimization_tpu_torch.ops import ilqr, velocity_batch
 
-    ilqr.LAUNCHES = ilqr.BATCH_LAUNCHES = velocity_batch.LAUNCHES = 0
+    ilqr.SOLVE_LAUNCHES = velocity_batch.LAUNCHES = 0
 
 
 def read_counts():
-    """(kernel 1, kernel 2, kernel 3) launches since the last reset."""
+    """(solve kernel, kernel 3) launches since the last reset."""
     from lap_time_optimization_tpu_torch.ops import ilqr, velocity_batch
 
-    return ilqr.LAUNCHES, ilqr.BATCH_LAUNCHES, velocity_batch.LAUNCHES
+    return ilqr.SOLVE_LAUNCHES, velocity_batch.LAUNCHES
 
 
 def nbytes(*tensors) -> int:
@@ -137,13 +150,32 @@ def bound_ms(n_bytes: int, flops: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ilqr_flops(N: int, L: int) -> int:
-    """Operations of one AL-iLQR iteration for one OCP, counted from the
-    loops of csrc/ilqr.cu (a libdevice trig call counted as one): per
-    stage ~7,300 in the Riccati sweep (the 10×10 products of Qzz, Quu, Quz
-    and the value update) and ~1,000 per ladder rung (2 RK4 substeps of
-    4 right-hand sides, the feedback law and the AL stage cost)."""
-    return N * (7300 + 1000 * L)
+def solve_flops(cfg, n_con: int = 14) -> int:
+    """Operations one AL-iLQR solve of one OCP needs, counted from the
+    arithmetic of csrc/ilqr.cu's device functions: a libdevice call counts
+    as one, products with the structural zeros of [A|B], Jr and Jg do not
+    count, and work the kernel repeats on several lanes counts once.
+    The RHS 85; its partials and the 29 nonzero entries of d rhs/d[x, u]
+    133 more; one tangent through them 47; one RK4 substep's updates of an
+    8-vector 104.  The linearisation of a step evaluates the RHS and its
+    partials once per RK4 stage and carries NZ tangent columns; a rollout
+    step is the RHS and the updates.  The constraints 56 (53 more for the
+    ellipse rows), the stage cost 43, the PHR penalty 8 per row; the GN
+    quads 159 for the residual rows, 252 for constraint rows 0-13 and 274
+    for the ellipse rows; a Riccati stage 4,725 (qv 162, Vzz[A|B] 1,520,
+    the Q blocks 1,364, the gains 99, Vz 180, Vzz symmetrised 1,400); the
+    feedback law 54 per rung and stage."""
+    N, L, ss = cfg.horizon, cfg.n_linesearch, cfg.substeps
+    ellipse = n_con == 16
+    rhs, partials, tangent, update = 85, 133, 47, 104
+    step = ss * (4 * rhs + update)
+    lin = ss * (4 * (rhs + partials) + update + 10 * (4 * tangent + update))
+    con, cost = 56 + 53 * ellipse, 43
+    al = cost + con + 8 * n_con
+    quads = 159 + 252 + 274 * ellipse
+    iteration = N * (lin + 4725 + L * (54 + step)) + (N + 1) * (quads + L * al)
+    al_round = cfg.ilqr_iters * iteration + (N + 1) * (al + con + 3 * n_con)
+    return cfg.al_iters * al_round + N * step + (N + 1) * (cost + con + n_con)
 
 
 def velocity_flops(B: int, N: int, pacejka: bool) -> int:
@@ -209,26 +241,21 @@ def load_main_path(device, dtype, tv=False, te=False):
     return model, OCPParams.reference(dtype, device, lateral_margin=0.05)
 
 
-def kernel_inputs(model, p, cfg, x0, lam_scale, seed):
-    """The kernels' arguments (all but reg_b) at one iterate of a solve from
-    x0 ((NX,) for the one-OCP kernel, (B, NX) for the batch kernel), with
-    seeded steering and multipliers."""
+def solve_inputs(model, cfg, x0, lam_scale, seed):
+    """(z0, us_init, lam_init) of a solve from x0 ((NX,) for one OCP, (B, NX)
+    for a batch) on the model's device and dtype, with seeded steering and
+    multipliers."""
     from lap_time_optimization_tpu_torch.mpc import solver as S
-    from lap_time_optimization_tpu_torch.ops import ilqr
 
     rng = np.random.default_rng(seed)
     dtype, device = model.track.k_vals.dtype, model.track.k_vals.device
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device).contiguous()
     lead = x0.shape[:-1]
     z0 = t(np.concatenate([x0, np.zeros(lead + (2,))], axis=-1))
     us = t(np.stack([rng.normal(0.0, 0.3, lead + (cfg.horizon,)),
                      np.full(lead + (cfg.horizon,), 0.05)], axis=-1))
     lams = t(rng.uniform(0.0, lam_scale, lead + (cfg.horizon + 1, S.n_con(model))))
-    zs = S._rollout(model, cfg, z0, us)
-    rho, reg = t(cfg.rho_init), t(cfg.reg_init)
-    return [*S._kernel_inputs(model, p, cfg, zs, us, lams, rho), zs.contiguous(),
-            us.contiguous(), lams.contiguous(), ilqr.tables_matrix(model).contiguous(),
-            ilqr.ladder(cfg.n_linesearch, dtype, device), ilqr.scal_vector(model, p, cfg, rho, reg)]
+    return z0, us, lams
 
 
 def fleet_states(track, n: int) -> np.ndarray:
@@ -242,14 +269,6 @@ def fleet_states(track, n: int) -> np.ndarray:
     x0[-1, 0] = s_max - 3.0
     x0[:, 3] = np.linspace(4.0, 12.0, n)
     return x0
-
-
-def max_err(got, ref):
-    """max |got - ref| / max(1, |ref|) over the outputs (the gated measure:
-    the arc length reaches 855 m and the cost hundreds, where one float32
-    ulp is 6e-5), and the plain max |got - ref| of each output."""
-    rel = max(float(((g - r).abs() / r.abs().clamp(min=1.0)).max()) for g, r in zip(got, ref))
-    return rel, [float((g - r).abs().max()) for g, r in zip(got, ref)]
 
 
 def cuda_ms(fn, n):
@@ -293,17 +312,24 @@ def profile_cycles(run, name, kernel, out_dir, cycle_ms, steps=3):
           f"per solve ({100 * ilqr_ms / busy_ms:.1f}% of busy)")
 
 
-def check_kernel(label, got, ref, tol):
-    """Print and gate one kernel-vs-twin comparison; returns the largest
-    plain |d| over zs, us and cost."""
-    rel, ab = max_err(got[:3], ref[:3])
-    ok_same = bool(torch.equal(got[3], ref[3]))
-    print(f"{label}: max |d|/max(1,|ref|) = {rel:.3e} (tol {tol:g}); max |d| zs {ab[0]:.3e}, "
-          f"us {ab[1]:.3e}, cost {ab[2]:.3e} (max |cost| {float(ref[2].abs().max()):.1f}); "
-          f"ok {int(got[3].sum())}/{int(ref[3].sum())} of {got[3].numel()}, equal {ok_same}")
-    if not (rel <= tol and ok_same):
-        raise AssertionError(f"{label}: kernel disagrees")
-    return max(ab)
+SOLVE_FIELDS = ("us", "zs", "lam", "cost", "max_violation")
+
+
+def check_solve(label, got, ref, dtype):
+    """Print and gate one solve-kernel-vs-plain comparison (tolerances at
+    SOLVE_F64_TOL); returns the largest plain |d| over the outputs."""
+    errs, ok = [], True
+    for name, g, r in zip(SOLVE_FIELDS, got, ref):
+        rel = float(((g - r).abs() / r.abs().clamp(min=1.0)).max())
+        tol = (SOLVE_F64_TOL if dtype == torch.float64
+               else SOLVE_F32_LAM_TOL if name == "lam" else SOLVE_F32_TOL)
+        ok = ok and g.shape == r.shape and rel <= tol
+        errs.append((name, rel, tol, float((g - r).abs().max())))
+    print(f"{label}: max |d|/max(1,|ref|) " + ", ".join(f"{n} {e:.2e} (tol {t:g})" for n, e, t, _ in errs)
+          + f"; cost {float(ref[3].max()):.2f}")
+    if not ok:
+        raise AssertionError(f"{label}: the solve kernel disagrees with the plain solve")
+    return max(a for *_, a in errs)
 
 
 def main(argv=None) -> int:
@@ -345,54 +371,68 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- phase 3
     cfg = SolverConfig(horizon=10)
-    sub = cfg.substeps
-    worst_f32_abs = [0.0, 0.0]  # one-OCP kernel, batch kernel
-    for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+    worst_f32_abs = 0.0
+    for dtype in (torch.float64, torch.float32):
         for tv, te in ((False, False), (False, True), (True, False)):
             model, p = load_main_path(device, dtype, tv, te)
+            pk = ilqr.pack(model, p, cfg)
             tag = f"{str(dtype)[6:]} n_con={14 + 2 * te} tv={tv}"
             errs = []
-            for s0, lam_scale, seed in ((0.0, 0.0, 0), (430.0, 2.0, 1), (855.0, 5.0, 2)):
-                x0 = runner.X0_REFERENCE.copy()
-                x0[0] = s0
-                inp = kernel_inputs(model, p, cfg, x0, lam_scale, seed)
-                errs.append(check_kernel(f"kernel vs twin {tag} s0={s0}",
-                                         ilqr.backward_forward(*inp, substeps=sub),
-                                         ilqr.backward_forward_reference(*inp, substeps=sub), tol))
-            inp = kernel_inputs(model, p, cfg, fleet_states(model.track, BATCH), 2.0, 3)
-            reg_b = torch.logspace(-6, 2, BATCH, dtype=dtype, device=device)
-            got = ilqr.backward_forward_batch(*inp, reg_b, substeps=sub)
-            errs_b = [check_kernel(f"batch kernel vs twin {tag} B={BATCH}", got,
-                                   ilqr.backward_forward_batch_reference(*inp, reg_b, substeps=sub),
-                                   tol)]
-            # instance b of the batch kernel is the one-OCP kernel at reg_b[b]
-            one = [ilqr.backward_forward(*(a[b].contiguous() for a in inp[:12]), *inp[12:14],
-                                         torch.cat([inp[14][:1], reg_b[b:b + 1], inp[14][2:]]),
-                                         substeps=sub) for b in range(BATCH)]
-            check_kernel(f"batch kernel vs one-OCP kernel per instance {tag}", got,
-                         [torch.stack(t) for t in zip(*one)], tol)
+            cases = [(f"s0={s0}", np.array([s0, *runner.X0_REFERENCE[1:]]), lam_scale, seed)
+                     for s0, lam_scale, seed in ((0.0, 0.0, 0), (430.0, 2.0, 1), (855.0, 5.0, 2))]
+            cases.append((f"B={BATCH}", fleet_states(model.track, BATCH), 2.0, 3))
             if dtype == torch.float32:
-                worst_f32_abs = [max(worst_f32_abs[0], *errs), max(worst_f32_abs[1], *errs_b)]
+                m64, p64 = load_main_path(device, torch.float64, tv, te)
+            for name, x0, lam_scale, seed in cases:
+                sargs = solve_inputs(model, cfg, x0, lam_scale, seed)
+                got = ilqr.solve(model, p, cfg, *sargs, pk)
+                ref = ilqr.solve_reference(model, p, cfg, *sargs, pk)
+                errs.append(check_solve(f"solve kernel vs plain {tag} {name}", got, ref, dtype))
+                if dtype == torch.float32:  # how far float32 itself is from float64
+                    ref64 = ilqr.solve_reference(m64, p64, cfg, *(a.double() for a in sargs),
+                                                 ilqr.pack(m64, p64, cfg))
+                    print(f"  plain f32 vs plain f64 on the same inputs: max |d|/max(1,|ref|) "
+                          + ", ".join(f"{n} {float(((r.double() - r6).abs() / r6.abs().clamp(min=1.0)).max()):.2e}"
+                                      for n, r, r6 in zip(SOLVE_FIELDS, ref, ref64)))
+            # instance b of the batch launch is the B=1 launch on it, bit for bit
+            same = all(torch.equal(g[b], o) for b in range(BATCH)
+                       for g, o in zip(got, ilqr.solve(model, p, cfg, *(a[b] for a in sargs), pk)))
+            print(f"solve kernel B={BATCH} vs B=1 per instance {tag}: bit-equal {same}")
+            if not same:
+                raise AssertionError(f"{tag}: a batch instance differs from its B=1 launch")
+            if dtype == torch.float32:
+                worst_f32_abs = max(worst_f32_abs, *errs)
 
     model, p = load_main_path(device, torch.float32)
-    inp = kernel_inputs(model, p, cfg, runner.X0_REFERENCE, 0.0, 0)
-    kernel_ms = cuda_ms(lambda: ilqr.backward_forward(*inp, substeps=sub), 200)
-    twin_ms = cuda_ms(lambda: ilqr.backward_forward_reference(*inp, substeps=sub), 20)
-    print(f"one-OCP kernel per call at N=10 L=6 substeps=2 n=846 f32: kernel {kernel_ms:.4f} ms, "
-          f"twin {twin_ms:.4f} ms")
-    inp = kernel_inputs(model, p, cfg, fleet_states(model.track, BATCH), 2.0, 3)
-    reg_b = torch.full((BATCH,), cfg.reg_init, dtype=torch.float32, device=device)
-    batch_ms = cuda_ms(lambda: ilqr.backward_forward_batch(*inp, reg_b, substeps=sub), 200)
-    batch_twin_ms = cuda_ms(lambda: ilqr.backward_forward_batch_reference(*inp, reg_b, substeps=sub), 20)
-    print(f"batch kernel per call at B={BATCH} N=10 L=6 substeps=2 n=846 f32: kernel {batch_ms:.4f} ms, "
-          f"twin {batch_twin_ms:.4f} ms")
-    one_out = (cfg.horizon + 1) * ilqr.NZ + cfg.horizon * ilqr.NU + 2  # zs, us, cost, ok
-    k1_bound = bound_ms(nbytes(*kernel_inputs(model, p, cfg, runner.X0_REFERENCE, 0.0, 0))
-                        + 4 * one_out, ilqr_flops(cfg.horizon, cfg.n_linesearch))
-    k2_bound = bound_ms(nbytes(*inp, reg_b) + 4 * BATCH * one_out,
-                        BATCH * ilqr_flops(cfg.horizon, cfg.n_linesearch))
-    print(f"bounds: kernel 1 {k1_bound[0] * 1e3:.4f} us ({k1_bound[1]}), kernel 2 at B={BATCH} "
-          f"{k2_bound[0] * 1e3:.4f} us ({k2_bound[1]})")
+    pk = ilqr.pack(model, p, cfg)
+    solve_ms, plain_ms, bounds = {}, {}, {}
+    for B in (1, BATCH, 1024):
+        x0 = runner.X0_REFERENCE if B == 1 else fleet_states(model.track, B)
+        sargs = solve_inputs(model, cfg, x0, 0.0 if B == 1 else 2.0, 3)
+        for W in (1, 2, 4):
+            solve_ms[B, W] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, warps=W), 20)
+        plain_ms[B] = cuda_ms(lambda: ilqr.solve_reference(model, p, cfg, *sargs, pk), 3 if B <= BATCH else 1)
+        outs = ilqr.solve(model, p, cfg, *sargs, pk)
+        bounds[B] = bound_ms(nbytes(*sargs, *pk, *outs), B * solve_flops(cfg))
+        print(f"solve kernel per call at B={B} N=10 L=6 substeps=2 2x5 iterations n=846 f32: "
+              + ", ".join(f"W={W} {solve_ms[B, W]:.4f} ms" for W in (1, 2, 4))
+              + f" (the wrapper takes W={min(ilqr.WARPS, B)}); plain solve {plain_ms[B]:.2f} ms"
+              + f"; bound {bounds[B][0] * 1e3:.4f} us ({bounds[B][1]}); "
+              f"smem per block {[ilqr.smem_bytes(torch.float32, W, 10, 6, 14, 846) for W in (1, 2, 4)]} B")
+    # where the time of a B=1 solve goes, by the kernel's own arguments: no
+    # iLQR iteration (the rollout, the AL costs, the multiplier updates and
+    # the outputs), and 1 RK4 substep (halves every RK4 chain: the rollout,
+    # the linearisation and the ladder)
+    sargs = solve_inputs(model, cfg, runner.X0_REFERENCE, 0.0, 3)
+    ablation = {}
+    for name, c in (("default", cfg), ("ilqr_iters=0", dataclasses.replace(cfg, ilqr_iters=0)),
+                    ("substeps=1", dataclasses.replace(cfg, substeps=1))):
+        pk_c = ilqr.pack(model, p, c)  # h = dt / substeps
+        ablation[name] = cuda_ms(lambda: ilqr.solve(model, p, c, *sargs, pk_c), 20)
+    per_it = (ablation["default"] - ablation["ilqr_iters=0"]) / (cfg.al_iters * cfg.ilqr_iters)
+    rk4 = 2.0 * (ablation["default"] - ablation["substeps=1"]) / ablation["default"]
+    print("solve kernel ablation at B=1 f32: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ablation.items())
+          + f"; per iLQR iteration {per_it:.4f} ms; the RK4 chains ~{100 * rk4:.1f}% of the solve")
 
     # kernel 3 on 1024 real candidate geometries (tridiag fit, as the fused route)
     n_dec = search_setup("cpu", torch.float64)[0].n_decongested
@@ -437,7 +477,7 @@ def main(argv=None) -> int:
     got = runner.closed_loop(m64, p64, cfg, torch.as_tensor(x0_np, device=device), 5)
     ref = runner.closed_loop(ref_m, ref_p, cfg, torch.as_tensor(x0_np), 5)
     dev = float((got.xs.cpu() - ref.xs).abs().max())
-    print(f"5-cycle f64 closed loop, card (kernel) vs CPU (twin): max |d xs| = {dev:.3e} (tol 1e-9)")
+    print(f"5-cycle f64 closed loop, card (solve kernel) vs CPU (plain): max |d xs| = {dev:.3e} (tol 1e-9)")
     if not dev <= 1e-9:
         raise AssertionError("closed loop on the card disagrees with the CPU reference")
 
@@ -449,7 +489,7 @@ def main(argv=None) -> int:
     sim = runner.closed_loop(model, p, cfg, x0, args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, stray, stray3 = read_counts()
+    launches, stray3 = read_counts()
     xs = sim.xs.cpu().numpy()
     applied = runner.applied_violation(model, p, sim)
     viols = sim.violations.cpu().numpy()
@@ -459,11 +499,10 @@ def main(argv=None) -> int:
           f"progress {xs[-1, 0]:.2f} m; applied violation {applied:.3e}; "
           f"predicted violation {predicted:.3e} over the first {PREDICTED_WINDOW} cycles, "
           f"{float(viols.max()):.3e} over all (step {int(viols.argmax())}); "
-          f"kernel launches {launches} ({launches / (args.steps + 2):.1f} per control cycle)")
-    expected = (args.steps + 2) * cfg.al_iters * cfg.ilqr_iters
-    if launches != expected or stray != 0 or stray3 != 0:
-        raise AssertionError(f"{launches} kernel launches, expected {expected}; "
-                             f"{stray} batch-kernel and {stray3} kernel-3 launches, expected 0")
+          f"solve-kernel launches {launches} ({launches / (args.steps + 2):.1f} per control cycle)")
+    if launches != args.steps + 2 or stray3 != 0:
+        raise AssertionError(f"{launches} solve-kernel launches, expected {args.steps + 2}; "
+                             f"{stray3} kernel-3 launches, expected 0")
     if xs.shape != (args.steps + 1, 8) or not np.all(np.isfinite(xs)):
         raise AssertionError("closed-loop states are not finite or of the wrong shape")
     if not np.all(np.diff(xs[:, 0]) > 0):
@@ -473,7 +512,7 @@ def main(argv=None) -> int:
 
     if args.profile:
         profile_cycles(lambda n: runner.closed_loop(model, p, cfg, x0, n), "closed_loop",
-                       "ilqr_kernel", args.profile, 1e3 * wall / args.steps)
+                       "ilqr_solve_kernel", args.profile, 1e3 * wall / args.steps)
 
     # ---------------------------------------------------------------- phase 5
     batch_steps = max(10, args.steps // 5)  # bench.py:82
@@ -481,7 +520,7 @@ def main(argv=None) -> int:
     got = runner.closed_loop_batch(m64, p64, cfg, torch.as_tensor(x0b_np[:4], device=device), 3)
     ref = runner.closed_loop_batch(ref_m, ref_p, cfg, torch.as_tensor(x0b_np[:4]), 3)
     dev = float((got.xs.cpu() - ref.xs).abs().max())
-    print(f"3-cycle f64 batched loop of 4, card (batch kernel) vs CPU (twin): max |d xs| = {dev:.3e} "
+    print(f"3-cycle f64 batched loop of 4, card (solve kernel) vs CPU (plain): max |d xs| = {dev:.3e} "
           f"(tol 1e-9)")
     if not dev <= 1e-9:
         raise AssertionError("batched loop on the card disagrees with the CPU reference")
@@ -494,7 +533,7 @@ def main(argv=None) -> int:
     fleet = runner.closed_loop_batch(model, p, cfg, x0b, batch_steps)
     torch.cuda.synchronize()
     bwall = time.perf_counter() - t0
-    stray, batch_launches, stray3 = read_counts()
+    batch_launches, stray3 = read_counts()
     bxs = fleet.xs.cpu().numpy()
     per = [runner.applied_violation(model, p, runner.SimResult(*(a[b] for a in fleet)))
            for b in range(BATCH)]
@@ -506,12 +545,11 @@ def main(argv=None) -> int:
           f"worst of instances 0-{FLEET_IN_BAND - 1} {bapplied:.3e}, instances {FLEET_IN_BAND}-{BATCH - 1} "
           f"{[round(v, 4) for v in per[FLEET_IN_BAND:]]}; predicted violation over all "
           f"{float(fleet.violations.max()):.3e}; "
-          f"batch-kernel launches {batch_launches} ({batch_launches / (batch_steps + 2):.1f} "
-          f"per control cycle), one-OCP kernel launches {stray}")
-    expected = (batch_steps + 2) * cfg.al_iters * cfg.ilqr_iters
-    if batch_launches != expected or stray != 0 or stray3 != 0:
-        raise AssertionError(f"{batch_launches} batch-kernel launches, expected {expected}; "
-                             f"{stray} one-OCP kernel and {stray3} kernel-3 launches, expected 0")
+          f"solve-kernel launches {batch_launches} ({batch_launches / (batch_steps + 2):.1f} "
+          f"per control cycle)")
+    if batch_launches != batch_steps + 2 or stray3 != 0:
+        raise AssertionError(f"{batch_launches} solve-kernel launches, expected {batch_steps + 2}; "
+                             f"{stray3} kernel-3 launches, expected 0")
     if bxs.shape != (BATCH, batch_steps + 1, 8) or not np.all(np.isfinite(bxs)):
         raise AssertionError("fleet states are not finite or of the wrong shape")
     if not np.all(np.diff(bxs[:, :, 0], axis=1) > 0):
@@ -521,7 +559,7 @@ def main(argv=None) -> int:
 
     if args.profile:
         profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
-                       "ilqr_batch_kernel", args.profile, 1e3 * bwall / batch_steps)
+                       "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
 
     # ---------------------------------------------------------------- phase 6
     conf = Config()
@@ -550,9 +588,9 @@ def main(argv=None) -> int:
     nl_lap, laps = lap_report(track, tbr18, best_x)
     print(f"nonlinear (tbr18, buckmore {WIDTH}, f32, seed 0, {nl.n_random} random, {nl.n_refine} refined, "
           f"{nl.max_iter} iterations, fused): {nl_wall:.2f} s; search lap {best_f:.4f} s, {laps} "
-          f"(gate {GATE_NONLINEAR:.3f}); launches (kernel 1, 2, 3) {nl_counts}")
-    if nl_counts != (0, 0, 1):
-        raise AssertionError(f"nonlinear launches {nl_counts}, expected (0, 0, 1)")
+          f"(gate {GATE_NONLINEAR:.3f}); launches (solve kernel, kernel 3) {nl_counts}")
+    if nl_counts != (0, 1):
+        raise AssertionError(f"nonlinear launches {nl_counts}, expected (0, 1)")
     if not (np.isfinite(nl_lap) and np.isfinite(best_f)):
         raise AssertionError("nonlinear lap is not finite")
     if not nl_lap < GATE_NONLINEAR:
@@ -574,45 +612,35 @@ def main(argv=None) -> int:
           f"per round, up to {bo.max_rounds} rounds, {bo.polish_iters} polish iterations, fused): "
           f"{bo_wall:.2f} s; {info['rounds']} rounds, {info['n_samples']} samples; timings "
           f"{json.dumps(info['timings'])}; search lap {bo_f:.4f} s, {laps} "
-          f"(gate {GATE_BAYES:.3f}); launches (kernel 1, 2, 3) {bo_counts}")
-    if bo_counts != (0, 0, 1 + info["rounds"]):
-        raise AssertionError(f"bayesian launches {bo_counts}, expected (0, 0, {1 + info['rounds']})")
+          f"(gate {GATE_BAYES:.3f}); launches (solve kernel, kernel 3) {bo_counts}")
+    if bo_counts != (0, 1 + info["rounds"]):
+        raise AssertionError(f"bayesian launches {bo_counts}, expected (0, {1 + info['rounds']})")
     if not (np.isfinite(bo_lap) and np.isfinite(bo_f)):
         raise AssertionError("bayesian lap is not finite")
     if not bo_f < GATE_BAYES:
         raise AssertionError(f"bayesian lap {bo_f:.4f} s above its gate {GATE_BAYES:.3f} s")
 
     # ---------------------------------------------------------------- phase 8
+    print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}")
     print(json.dumps({"kernels": [{
-        "name": "ilqr_backward_forward",
+        "name": "ilqr_solve",
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
-        "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr.py:471",
-        "launches": launches,
-        "max_abs_err": worst_f32_abs[0],
-        "ms": kernel_ms,
-        "plain_ms": twin_ms,
-        "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1],
-        "library_ms": None,
-    }, {
-        "name": "ilqr_backward_forward_batch",
-        "route": "cuda",
-        "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
-        "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr_batch.py:444",
-        "launches": batch_launches,
-        "max_abs_err": worst_f32_abs[1],
-        "ms": batch_ms,
-        "plain_ms": batch_twin_ms,
-        "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1],
+        "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr.py:471 and "
+                    "lap_time_optimization_tpu/ops/pallas_ilqr_batch.py:444",
+        "launches": launches + batch_launches,
+        "max_abs_err": worst_f32_abs,
+        "ms": solve_ms[1, 1],  # the wrapper launches one warp at B=1
+        "plain_ms": plain_ms[1],
+        "bound_ms": bounds[1][0],
+        "bound_by": bounds[1][1],
         "library_ms": None,
     }, {
         "name": "velocity_profile_batch",
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/velocity.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_velocity.py:229",
-        "launches": nl_counts[2] + bo_counts[2],
+        "launches": nl_counts[1] + bo_counts[1],
         "max_abs_err": worst_k3_abs,
         "ms": k3_ms,
         "plain_ms": k3_twin_ms,

@@ -8,7 +8,7 @@ kernels under `csrc/` are compiled with `nvcc` at their first launch on a
 CUDA tensor.
 
 Ported so far: the closed-loop NMPC (artifacts → track tables → bicycle RK4 →
-AL-iLQR with the fused CUDA iteration kernels → closed loop), as a single
+AL-iLQR, one CUDA kernel launch per solve → closed loop), as a single
 stream, in checkpointed chunks and as a batched fleet, with the replay plots;
 and the batched racing-line global searches (`optim/global_search`: the
 nonlinear multi-start and the Bayesian search), whose batched forward

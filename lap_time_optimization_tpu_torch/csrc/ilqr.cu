@@ -1,58 +1,76 @@
-// One fused AL-iLQR iteration: Riccati backward sweep + line-search ladder
-// rollout + rung choice, for one OCP or for a batch of independent OCPs.
-// CUDA C++ for sm_90a.
+// The whole AL-iLQR solve of the horizon NMPC in one launch, for a batch of
+// independent OCPs (the single stream is the batch at B = 1).  CUDA C++ for
+// sm_90a.
 //
-// Replaces two Pallas TPU kernels of lap_time_optimization_tpu/ops/:
-//  * pallas_ilqr.py `backward_forward` (body `_kernel`): one OCP, `ilqr_kernel`;
-//    plain PyTorch twin ops/ilqr.py::backward_forward_reference;
-//  * pallas_ilqr_batch.py `backward_forward_batch` (body `_kernel`): B OCPs
-//    with a Levenberg reg per instance, `ilqr_batch_kernel`; plain PyTorch
-//    twin ops/ilqr.py::backward_forward_batch_reference.
-// Both kernels run one device function, `ilqr_iteration`, so the physics,
-// the AL costs and the Riccati sweep exist once.
+// Replaces two Pallas TPU kernels of lap_time_optimization_tpu/ops/, and the
+// eager PyTorch around them in mpc/solver.py:
+//  * pallas_ilqr.py `backward_forward` (body `_kernel`): one AL-iLQR
+//    iteration (Riccati sweep + line-search ladder) of one OCP;
+//  * pallas_ilqr_batch.py `backward_forward_batch` (body `_kernel`): the
+//    same iteration for B OCPs, each with its own Levenberg reg.
+// Here one launch runs everything `solver.solve` / `solve_batch` compute in
+// Gauss-Newton mode (the plain version is mpc/solver.py::_solve with the
+// iteration twins of ops/ilqr.py): the rollout of us_init; al_iters AL
+// rounds of (AL cost, ilqr_iters x [analytic linearisation of the RK4
+// step, GN stage and terminal quads, Riccati sweep with the closed-form 2x2
+// Quu inverse and the finite-gain flag, L-rung ladder rollout with its PHR
+// costs, lowest-index minimal rung, accept if new_cost < cost and the sweep
+// stayed finite, reg x0.5 (floored at reg_init) or x100], multiplier update
+// on the tightened band with the terminal mask, rho *= rho_scale); then the
+// AL-free cost and the max violation on the true band.
 //
-// What bounds it: latency, not bytes or FLOPs.  The backward pass is N serial
-// stages of 10x10 products (about 10 FMAs per output element); each ladder
-// rung is N x substeps x 4 serial evaluations of the bicycle RHS (trig and
-// divisions).  At the main path's shapes (N=10, L=6, substeps=2, n=846) the
-// whole call reads ~30 KB and does ~10^5 flops, on one SM.
+// What bounds it on the H100: latency.  An OCP is N serial Riccati stages of
+// 10x10 products and L ladder rollouts of N x substeps x 4 serial RHS
+// evaluations (trig, divisions), repeated al_iters x ilqr_iters times; at
+// the main path's shapes (N=10, L=6, substeps=2, 2x5 iterations, n=846) a
+// solve reads the 13.5 KB table (f32) and ~0.7 KB per OCP, writes ~1.1 KB
+// per OCP and needs ~2.0e6 operations per OCP (chip_smoke.py solve_flops):
+// tens of nanoseconds of the card's bytes or FLOPs per OCP, against
+// milliseconds of dependent instructions on one warp, most of them the
+// serial RK4 chains of the ladder rungs and the linearisation's tangent
+// columns (chip_smoke.py times the solve with 1 RK4 substep and with no
+// iLQR iteration to split it).  What cost the time before this kernel was
+// everything around the per-iteration kernels: ~35,000 eager PyTorch
+// launches per solve, and the table reloaded per iteration.
 //
-// Bring-up design: one thread block of 128 threads per OCP.
-//  * The (4, n) lookup tables, the gains, the value function and the ladder's
-//    trajectories live in dynamic shared memory.  Lookups use the uniform-grid
-//    index arithmetic of mpc/track.py MPCTrack._uinterp: the cell index clipped
-//    to [0, n-2] as an integer, frac clipped to [0, 1], and the lap wrap
-//    s - floor(s/s_max)*s_max (computed as jnp.mod / torch.remainder do).
-//  * Backward pass: one thread per output element of each small product, with
-//    __syncthreads() between products; the 2x2 Quu inverse is closed form.
-//  * Ladder: one thread per rung runs the scalar RK4 chain and accumulates the
-//    PHR augmented-Lagrangian cost; thread 0 then picks the lowest-index rung
-//    among the minimal finite costs (NaN counts as +inf) and all threads copy
-//    it out.
-//  * Plain FMA loops in full precision: no tensor cores, no TF32 (the Riccati
-//    recursion needs full fp32, the hazard the Pallas kernel's HIGHEST
-//    precision guards against).  Trig is libdevice's (sin/cos/tan/atan/atan2).
-// Making it fast is later work: fusing the linearisation and quadraticisation
-// into it and capturing a control cycle in a CUDA graph.
+// Design:
+//  * One warp per OCP.  A block of W warps (W = 1, 2 or 4) holds W instances
+//    and ONE copy of the (4, n) lookup table and the scalars in shared
+//    memory, loaded once per solve; after that single __syncthreads a warp
+//    synchronises only itself (__syncwarp), so instances never wait for each
+//    other.  Instance b of a batch is computed exactly as at B = 1.
+//  * Everything an OCP keeps between iterations (trajectory, multipliers,
+//    stage Jacobians, GN quads, gains, value function, ladder trajectories)
+//    sits in the warp's slice of dynamic shared memory for the whole solve;
+//    scalars (rho, reg, the AL cost) are in registers, identical on every
+//    lane.
+//  * Lanes split the stage-parallel work: the linearisation one (stage,
+//    tangent column) per lane, carrying the tangent through the 2x4 RK4
+//    stages as BicycleModel.step_and_jacobian does, with the partials of
+//    rhs_and_jacobian; the GN quads 2 Jr'Jr + rho Jg' diag(act) Jg one stage
+//    per lane, over the sparse rows of Jr and Jg; the ladder one rung per
+//    lane (L <= 32); the AL costs and the multiplier update one stage per
+//    lane.  Each Riccati stage is three warp-synchronous phases of ~4 output
+//    elements per lane: P = Vzz [A|B] with Q = l + [A|B]'Vz; the Q blocks
+//    [A|B]'P; then the gains (each lane inverts Quu itself) fused with the
+//    symmetrised value update.
+//  * The rung choice needs no barrier: every lane scans the L costs itself.
+//  * Plain FMA loops in full precision: no tensor cores, no TF32 (at 10x10
+//    the matrices are below any MMA tile).  Trig is libdevice's.
+//  * Non-smooth points follow the plain version: the lookup slope of
+//    MPCTrack._uinterp_d (half on a grid point), the vx floor gate (1, 1/2
+//    on it, 0 below), sign(mu) as +1 at 0; NaN costs count as +inf in the
+//    rung choice, new_cost < cost is false for NaN, max(0, x) keeps NaN.
+// Shared memory: the table and scalars, plus W slices of solve_slice_elems()
+// elements (~4,200 at N=10, L=6, 16 rows: 16.9 KB in f32, 33.8 KB in f64).
+// The launch raises the dynamic limit above 48 KB and refuses sizes past the
+// 227 KB a block can hold.
 //
-// Batch design (bring-up): a grid of B blocks, block b running the body above
-// on instance b with reg = reg_b[b].  Every block loads the whole (4, n) table
-// into its own shared memory (13.5 KB in f32, 27 KB in f64 at n = 846), so
-// there is no per-instance table window and no clamp at a window edge: the
-// batch kernel equals the single-instance kernel on every instance.  The
-// TPU kernel's cost-only ladder pass and re-roll of the winning rung become
-// the stored ladder of the body, which returns the same trajectories.  What
-// bounds it: the same latency as one OCP (~10^5 dependent flops on one SM),
-// with the B blocks in parallel; past what the card holds at once (132 SMs
-// times the blocks that registers and shared memory let share an SM) they
-// run in waves, and 128 threads per instance leave most lanes idle in the
-// serial ladder.  A later redesign maps one instance to a warp or a thread,
-// so that all B instances fit in one wave and the table is loaded once per SM.
-//
-// C interface (one entry point per type and kernel): every pointer is a
-// contiguous device buffer in the layouts of ops/ilqr.py::backward_forward
-// (with a leading instance axis for backward_forward_batch); the launch goes
-// onto `stream`, allocates nothing and returns cudaGetLastError().
+// C interface (one entry point per type): every pointer is a contiguous
+// device buffer in the layouts of ops/ilqr.py::solve (a leading instance
+// axis B); the launch goes onto `stream`, allocates nothing and returns
+// cudaGetLastError().  lto_ilqr_solve_smem_bytes gives the dynamic shared
+// memory of a launch, or 0 for sizes the kernel does not take.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -61,13 +79,16 @@ namespace {
 
 constexpr int NX = 8;
 constexpr int NU = 2;
-constexpr int NZ = NX + NU;
+constexpr int NZ = NX + NU;  // augmented state [x, u_prev]
+constexpr int NQ = NZ + NU;  // quad variables [z, u]
 constexpr int N_CON = 14;
-constexpr int THREADS = 128;
+constexpr int WARP = 32;
+constexpr int MAX_WARPS = 4;
+constexpr size_t MAX_SMEM = 232448;  // what one block may hold on sm_90
 
-// scalar-vector layout: must mirror ops/ilqr.py SCAL_FIELDS
+// scalar-vector layout: must mirror ops/ilqr.py SCAL_FIELDS[2:] (scal_tail)
 enum Scal {
-  RHO, REG, S_MAX, INV_DS, H,
+  S_MAX, INV_DS, H,
   MASS, LF, LR, IZ,
   BF, CF, DF, BR, CR, DR,
   CM, CR0, CR2,
@@ -89,6 +110,8 @@ __device__ __forceinline__ float m_atan(float x) { return atanf(x); }
 __device__ __forceinline__ double m_atan(double x) { return atan(x); }
 __device__ __forceinline__ float m_atan2(float y, float x) { return atan2f(y, x); }
 __device__ __forceinline__ double m_atan2(double y, double x) { return atan2(y, x); }
+__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float m_fmod(float x, float y) { return fmodf(x, y); }
 __device__ __forceinline__ double m_fmod(double x, double y) { return fmod(x, y); }
 __device__ __forceinline__ float m_floor(float x) { return floorf(x); }
@@ -102,9 +125,15 @@ __device__ __forceinline__ double m_inf(double) { return CUDART_INF; }
 template <typename T>
 __device__ __forceinline__ T relu_nan(T x) { return x < T(0) ? T(0) : x; }
 
-// piecewise-linear lookup of one table row (MPCTrack._uinterp semantics)
+// max that propagates NaN, as torch.maximum / amax do
 template <typename T>
-__device__ T lookup(const T* row, int n, T s, const T* sc) {
+__device__ __forceinline__ T max_nan(T m, T x) { return (x > m || x != x) && m == m ? x : m; }
+
+// Cell of the uniform arc grid holding s (mpc/track.py MPCTrack._cell): the
+// lap wrap as torch.remainder, the index clipped to [0, n-2] as an integer
+// (NaN to 0), and the unclipped frac.
+template <typename T>
+__device__ __forceinline__ int cell(int n, T s, const T* sc, T& frac) {
   const T s_max = sc[S_MAX];
   T sw = m_fmod(s, s_max);
   if (sw != T(0) && ((sw < T(0)) != (s_max < T(0)))) sw += s_max;
@@ -113,9 +142,34 @@ __device__ T lookup(const T* row, int n, T s, const T* sc) {
   if (t >= T(n - 2)) i = n - 2;
   else if (t >= T(0)) i = (int)m_floor(t);
   else i = 0;  // negative or NaN
-  T frac = t - T(i);
-  frac = frac < T(0) ? T(0) : (frac > T(1) ? T(1) : frac);
+  frac = t - T(i);
+  return i;
+}
+
+template <typename T>
+__device__ __forceinline__ T clip01(T f) { return f < T(0) ? T(0) : (f > T(1) ? T(1) : f); }
+
+// piecewise-linear lookup of one table row (MPCTrack._uinterp)
+template <typename T>
+__device__ T lookup(const T* row, int n, T s, const T* sc) {
+  T frac;
+  const int i = cell(n, s, sc, frac);
+  frac = clip01(frac);
   return row[i] * (T(1) - frac) + row[i + 1] * frac;
+}
+
+// value and slope (MPCTrack._uinterp_d): full slope inside the cell, half
+// where frac sits exactly on a clip bound, zero beyond
+template <typename T>
+__device__ T lookup_d(const T* row, int n, T s, const T* sc, T& slope) {
+  T frac;
+  const int i = cell(n, s, sc, frac);
+  const T gain = (frac > T(0) && frac < T(1)) ? T(1)
+                 : ((frac == T(0) || frac == T(1)) ? T(0.5) : T(0));
+  const T lo = row[i], hi = row[i + 1];
+  slope = (hi - lo) * sc[INV_DS] * gain;
+  frac = clip01(frac);
+  return lo * (T(1) - frac) + hi * frac;
 }
 
 template <typename T>
@@ -136,6 +190,42 @@ __device__ Tyres<T> tyre_forces(T vx, T vy, T r, T delta, const T* sc) {
   out.Fy_f = -Fn_f * sc[DF] * m_sin(sc[CF] * m_atan(sc[BF] * alpha_f));
   out.Fy_r = -Fn_r * sc[DR] * m_sin(sc[CR] * m_atan(sc[BR] * alpha_r));
   return out;
+}
+
+// the forces and their partials (BicycleModel.tyre_partials): dFy_f w.r.t.
+// (vx, vy, r, delta), dFy_r w.r.t. (vx, vy, r)
+template <typename T>
+struct TyreD {
+  T Fy_f, Fy_r, f_vx, f_vy, f_r, f_d, r_vx, r_vy, r_r;
+};
+
+template <typename T>
+__device__ TyreD<T> tyre_partials(T vx, T vy, T r, T delta, const T* sc) {
+  const T lf = sc[LF], lr = sc[LR], m = sc[MASS];
+  const T yf = vy + lf * r, yr = vy - lr * r;
+  const T alpha_f = m_atan2(yf, vx) - delta;
+  const T alpha_r = m_atan2(yr, vx);
+  const T wheelbase = lf + lr;
+  const T Fn_f = lr * m * T(GRAV) / wheelbase;
+  const T Fn_r = lf * m * T(GRAV) / wheelbase;
+  const T bf = sc[BF] * alpha_f, br = sc[BR] * alpha_r;
+  const T atf = m_atan(bf), atr = m_atan(br);
+  TyreD<T> o;
+  o.Fy_f = -Fn_f * sc[DF] * m_sin(sc[CF] * atf);
+  o.Fy_r = -Fn_r * sc[DR] * m_sin(sc[CR] * atr);
+  const T gf = -Fn_f * sc[DF] * m_cos(sc[CF] * atf) * sc[CF] * sc[BF] / (T(1) + bf * bf);
+  const T gr = -Fn_r * sc[DR] * m_cos(sc[CR] * atr) * sc[CR] * sc[BR] / (T(1) + br * br);
+  // d atan2(y, x) = (x dy - y dx) / (x^2 + y^2)
+  const T qf = gf / (vx * vx + yf * yf);
+  const T qr = gr / (vx * vx + yr * yr);
+  o.f_vx = -yf * qf;
+  o.f_vy = vx * qf;
+  o.f_r = lf * vx * qf;
+  o.f_d = -gf;
+  o.r_vx = -yr * qr;
+  o.r_vy = vx * qr;
+  o.r_r = -lr * vx * qr;
+  return o;
 }
 
 // curvilinear bicycle RHS (models/bicycle.py BicycleModel.rhs, torque
@@ -161,6 +251,62 @@ __device__ void rhs(const T* x, const T* u, const T* tab, int n, const T* sc, T*
   xdot[5] = (f.Fy_f * lf * cos_d - f.Fy_r * lr + Mtv) / sc[IZ];
   xdot[6] = u[0];
   xdot[7] = u[1];
+}
+
+// The RHS and its directional derivative along one tangent column:
+// dxdot = d rhs/dx . v + d rhs/du e_col (col 8, 9 are the inputs), with the
+// partials of BicycleModel.rhs_and_jacobian.
+template <typename T>
+__device__ void rhs_jvp(const T* x, const T* v, const T* u, int col, const T* tab, int n,
+                        const T* sc, T* xdot, T* dxdot) {
+  const T s = x[0], nn = x[1], mu = x[2], vx = x[3], vy = x[4], r = x[5];
+  const T delta = x[6], thr = x[7];
+  const T m = sc[MASS], lf = sc[LF], lr = sc[LR], Iz = sc[IZ], ptv = sc[PTV];
+  T dk;
+  const T k = lookup_d(tab, n, s, sc, dk);
+  const T cos_mu = m_cos(mu), sin_mu = m_sin(mu);
+  const T den = T(1) - nn * k;
+  const T num = vx * cos_mu - vy * sin_mu;
+  const T sdot = num / den;
+  const T sd_s = sdot * nn * dk / den;
+  const T sd_n = sdot * k / den;
+  const T sd_mu = (-vx * sin_mu - vy * cos_mu) / den;
+  const T sd_vx = cos_mu / den;
+  const T sd_vy = -sin_mu / den;
+  const TyreD<T> t = tyre_partials(vx, vy, r, delta, sc);
+  const T Fx = sc[CM] * thr - sc[CR0] - sc[CR2] * vx * vx;
+  const T cos_d = m_cos(delta), sin_d = m_sin(delta);
+  const T tan_d = m_tan(delta);
+  const T rt = tan_d * vx / (lf + lr);
+  const T yaw = t.Fy_f * lf * cos_d - t.Fy_r * lr + ptv * (rt - r);
+  const T m_vx = ptv * tan_d / (lf + lr);
+  const T m_r = -ptv;
+  const T m_d = ptv * vx * (T(1) + tan_d * tan_d) / (lf + lr);
+  xdot[0] = sdot;
+  xdot[1] = vx * sin_mu + vy * cos_mu;
+  xdot[2] = r - k * sdot;
+  xdot[3] = (Fx - t.Fy_f * sin_d + m * vy * r) / m;
+  xdot[4] = (t.Fy_r + t.Fy_f * cos_d - m * vx * r) / m;
+  xdot[5] = yaw / Iz;
+  xdot[6] = u[0];
+  xdot[7] = u[1];
+  dxdot[0] = sd_s * v[0] + sd_n * v[1] + sd_mu * v[2] + sd_vx * v[3] + sd_vy * v[4];
+  dxdot[1] = num * v[2] + sin_mu * v[3] + cos_mu * v[4];
+  dxdot[2] = -(dk * sdot + k * sd_s) * v[0] + (-k * sd_n) * v[1] + (-k * sd_mu) * v[2] +
+             (-k * sd_vx) * v[3] + (-k * sd_vy) * v[4] + v[5];
+  dxdot[3] = ((T(-2) * sc[CR2] * vx - t.f_vx * sin_d) / m) * v[3] +
+             ((-t.f_vy * sin_d + m * r) / m) * v[4] + ((-t.f_r * sin_d + m * vy) / m) * v[5] +
+             ((-t.f_d * sin_d - t.Fy_f * cos_d) / m) * v[6] + (sc[CM] / m) * v[7];
+  dxdot[4] = ((t.r_vx + t.f_vx * cos_d - m * r) / m) * v[3] +
+             ((t.r_vy + t.f_vy * cos_d) / m) * v[4] +
+             ((t.r_r + t.f_r * cos_d - m * vx) / m) * v[5] +
+             ((t.f_d * cos_d - t.Fy_f * sin_d) / m) * v[6];
+  dxdot[5] = ((t.f_vx * lf * cos_d - t.r_vx * lr + m_vx) / Iz) * v[3] +
+             ((t.f_vy * lf * cos_d - t.r_vy * lr) / Iz) * v[4] +
+             ((t.f_r * lf * cos_d - t.r_r * lr + m_r) / Iz) * v[5] +
+             ((t.f_d * lf * cos_d - t.Fy_f * lf * sin_d + m_d) / Iz) * v[6];
+  dxdot[6] = col == NX ? T(1) : T(0);
+  dxdot[7] = col == NX + 1 ? T(1) : T(0);
 }
 
 // augmented RK4 step: x integrates over `substeps` increments, u_prev := u
@@ -191,21 +337,69 @@ __device__ void dyn_step(T* z, const T* u, const T* tab, int n, const T* sc, int
   z[NX + 1] = u[1];
 }
 
-// PHR penalty sum_i (max(0, lam_i + rho g_i)^2 - lam_i^2) / (2 rho) over the
-// solver-tightened constraints (mpc/solver.py tightened_constraints); at the
-// terminal stage the input rows 10-13 are replaced by -1
+// One tangent column of the step's Jacobian w.r.t. [x, u]
+// (BicycleModel.step_and_jacobian): column col of dX, starting from
+// eye(NX, NX+NU), carried through every RK4 stage.
 template <typename T>
-__device__ T al_penalty(const T* z, const T* u, const T* lam, int n_con, bool terminal,
-                        const T* tab, int n, const T* sc) {
+__device__ void step_jacobian_column(const T* z, const T* u, int col, const T* tab, int n,
+                                     const T* sc, int substeps, T* out) {
+  const T h = sc[H];
+  T x[NX], v[NX], xt[NX], vt[NX], kx[NX], kv[NX], ax[NX], av[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    x[i] = z[i];
+    v[i] = i == col ? T(1) : T(0);
+  }
+  for (int sub = 0; sub < substeps; ++sub) {
+    rhs_jvp(x, v, u, col, tab, n, sc, kx, kv);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      ax[i] = kx[i];
+      av[i] = kv[i];
+      xt[i] = x[i] + T(0.5) * h * kx[i];
+      vt[i] = v[i] + T(0.5) * h * kv[i];
+    }
+    rhs_jvp(xt, vt, u, col, tab, n, sc, kx, kv);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      ax[i] = ax[i] + T(2) * kx[i];
+      av[i] = av[i] + T(2) * kv[i];
+      xt[i] = x[i] + T(0.5) * h * kx[i];
+      vt[i] = v[i] + T(0.5) * h * kv[i];
+    }
+    rhs_jvp(xt, vt, u, col, tab, n, sc, kx, kv);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      ax[i] = ax[i] + T(2) * kx[i];
+      av[i] = av[i] + T(2) * kv[i];
+      xt[i] = x[i] + h * kx[i];
+      vt[i] = v[i] + h * kv[i];
+    }
+    rhs_jvp(xt, vt, u, col, tab, n, sc, kx, kv);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      x[i] = x[i] + (h / T(6)) * (ax[i] + kx[i]);
+      v[i] = v[i] + (h / T(6)) * (av[i] + kv[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) out[i] = v[i];
+}
+
+// The stage inequalities g <= 0 (mpc/solver.py _constraints) with the lateral
+// band shrunk by `margin`; at the terminal stage the input rows 10-13 are
+// replaced by -1 (_masked_terminal_constraints).
+template <typename T>
+__device__ void constraints(const T* z, const T* u, bool terminal, T margin, int n_con,
+                            const T* tab, int n, const T* sc, T* g) {
   const T s = z[0], nn = z[1], mu = z[2], vx = z[3], delta = z[6], thr = z[7];
   const T nl = lookup(tab + 1 * n, n, s, sc);
   const T nr = lookup(tab + 2 * n, n, s, sc);
   const T abs_mu = mu >= T(0) ? mu : -mu;
   const T lon = sc[HALF_LEN] * m_sin(abs_mu);
   const T lat = sc[HALF_WID] * m_cos(mu);
-  T g[N_CON + 2];
-  g[0] = nn - lon + lat - nl + sc[MARGIN];
-  g[1] = -nn + lon + lat - nr + sc[MARGIN];
+  g[0] = nn - lon + lat - nl + margin;
+  g[1] = -nn + lon + lat - nr + margin;
   g[2] = -s;
   g[3] = mu - sc[MU_MAX];
   g[4] = -mu - sc[MU_MAX];
@@ -234,7 +428,15 @@ __device__ T al_penalty(const T* z, const T* u, const T* lam, int n_con, bool te
     g[14] = (longf * longf + f.Fy_f * f.Fy_f - cap_f) / cap_f;
     g[15] = (longf * longf + f.Fy_r * f.Fy_r - cap_r) / cap_r;
   }
-  const T rho = sc[RHO];
+}
+
+// PHR penalty sum_i (max(0, lam_i + rho g_i)^2 - lam_i^2) / (2 rho) over the
+// tightened constraints
+template <typename T>
+__device__ T al_penalty(const T* z, const T* u, const T* lam, T rho, int n_con, bool terminal,
+                        const T* tab, int n, const T* sc) {
+  T g[N_CON + 2];
+  constraints(z, u, terminal, sc[MARGIN], n_con, tab, n, sc, g);
   T pen = T(0);
   for (int i = 0; i < n_con; ++i) {
     const T sh = relu_nan(lam[i] + rho * g[i]);
@@ -243,10 +445,9 @@ __device__ T al_penalty(const T* z, const T* u, const T* lam, int n_con, bool te
   return pen;
 }
 
-// AL stage cost (mpc/solver.py al_stage_cost)
+// stage cost lterm + rterm (mpc/solver.py stage_cost)
 template <typename T>
-__device__ T al_stage_cost(const T* z, const T* u, const T* lam, int n_con,
-                           const T* tab, int n, const T* sc) {
+__device__ T stage_cost(const T* z, const T* u, const T* tab, int n, const T* sc) {
   const T nn = z[1], mu = z[2], vx = z[3], vy = z[4], delta = z[6];
   const T vref = lookup(tab + 3 * n, n, z[0], sc);
   const T vx_safe = vx < T(1e-3) ? T(1e-3) : vx;
@@ -258,257 +459,493 @@ __device__ T al_stage_cost(const T* z, const T* u, const T* lam, int n_con,
   const T mterm = sc[QN] * (nn * nn) + sc[QMU] * (mu * mu) + vy * vy;
   const T lterm = mterm + dv * dv + sc[QB] * (db * db);
   const T rterm = sc[RDELTA] * (du0 * du0) + sc[RTHR] * (du1 * du1);
-  return lterm + rterm + al_penalty(z, u, lam, n_con, false, tab, n, sc);
+  return lterm + rterm;
 }
 
-// AL terminal cost (mpc/solver.py al_terminal_cost)
+// terminal cost mterm (mpc/solver.py terminal_cost)
 template <typename T>
-__device__ T al_terminal_cost(const T* z, const T* lam, int n_con,
-                              const T* tab, int n, const T* sc) {
+__device__ T terminal_cost(const T* z, const T* sc) {
   const T nn = z[1], mu = z[2], vy = z[4];
-  const T zero_u[NU] = {T(0), T(0)};
-  const T mterm = sc[QN] * (nn * nn) + sc[QMU] * (mu * mu) + vy * vy;
-  return mterm + al_penalty(z, zero_u, lam, n_con, true, tab, n, sc);
+  return sc[QN] * (nn * nn) + sc[QMU] * (mu * mu) + vy * vy;
 }
 
-// The kernels' common body: one iteration for one OCP, run by one block.
-// Pointers are the instance's own; `reg` is its Levenberg regularisation.
 template <typename T>
-__device__ __forceinline__ void ilqr_iteration(
-    T* smem, const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ lz,
-    const T* __restrict__ lu, const T* __restrict__ lzz, const T* __restrict__ luu,
-    const T* __restrict__ luz, const T* __restrict__ Vz_in, const T* __restrict__ Vzz_in,
-    const T* __restrict__ zs, const T* __restrict__ us, const T* __restrict__ lams,
-    const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
-    const T reg, T* __restrict__ zs_out, T* __restrict__ us_out, T* __restrict__ cost_out,
-    T* __restrict__ ok_out, int N, int L, int n_con, int n, int substeps) {
-  T* sc = smem;                       // NS
-  T* tab = sc + NS;                   // 4 * n
-  T* Vz = tab + 4 * n;                // NZ
-  T* Vzz = Vz + NZ;                   // NZ*NZ
-  T* VzzA = Vzz + NZ * NZ;            // NZ*NZ
-  T* VzzB = VzzA + NZ * NZ;           // NZ*NU
-  T* Qz = VzzB + NZ * NU;             // NZ
-  T* Qu = Qz + NZ;                    // NU
-  T* Qzz = Qu + NU;                   // NZ*NZ
-  T* Quu = Qzz + NZ * NZ;             // NU*NU
-  T* Quz = Quu + NU * NU;             // NU*NZ
-  T* Vtmp = Quz + NU * NZ;            // NZ*NZ
-  T* Vz_new = Vtmp + NZ * NZ;         // NZ
-  T* ks = Vz_new + NZ;                // N*NU
-  T* Ks = ks + N * NU;                // N*NU*NZ
-  T* zall = Ks + N * NU * NZ;         // (N+1)*L*NZ
-  T* uall = zall + (N + 1) * L * NZ;  // N*L*NU
-  T* costs = uall + N * L * NU;       // L
-  __shared__ int best_idx;
-  __shared__ bool ok_s;
+__device__ T al_stage_cost(const T* z, const T* u, const T* lam, T rho, int n_con, const T* tab,
+                           int n, const T* sc) {
+  return stage_cost(z, u, tab, n, sc) + al_penalty(z, u, lam, rho, n_con, false, tab, n, sc);
+}
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < NS; i += THREADS) sc[i] = scal[i];
-  for (int i = tid; i < 4 * n; i += THREADS) tab[i] = tables[i];
-  for (int i = tid; i < NZ; i += THREADS) Vz[i] = Vz_in[i];
-  for (int i = tid; i < NZ * NZ; i += THREADS) Vzz[i] = Vzz_in[i];
-  if (tid == 0) ok_s = true;
-  __syncthreads();
+template <typename T>
+__device__ T al_terminal_cost(const T* z, const T* lam, T rho, int n_con, const T* tab, int n,
+                              const T* sc) {
+  const T zero_u[NU] = {T(0), T(0)};
+  return terminal_cost(z, sc) + al_penalty(z, zero_u, lam, rho, n_con, true, tab, n, sc);
+}
 
-  // ------------------------------------------------------------- Riccati
+// One sparse row of Jr or Jg (<= 5 nonzeros) added to the stage's GN quads:
+// H += a a' with a = 2 v (residual rows: 2 Jr'Jr) or H += v (act v)'
+// (constraint rows: Jg' diag(act) Jg), and G += v * w (w = r or phi).
+template <typename T, int K>
+__device__ __forceinline__ void add_row(T* Hs, T* Gs, const int (&c)[K], const T (&v)[K], T left,
+                                        T right, T w) {
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    Gs[c[a]] += v[a] * w;
+#pragma unroll
+    for (int b = 0; b < K; ++b) Hs[c[a] * NQ + c[b]] += (left * v[a]) * (right * v[b]);
+  }
+}
+
+// GN quads of the AL stage cost at (z, u, lam) (mpc/solver.py
+// _stage_jacobians + _gn): Hs (NQ x NQ) = 2 Jr'Jr + Jg' diag(act) Jg and
+// Gs (NQ) = 2 Jr'r + Jg' phi.  The terminal stage (_terminal_quads_gauss_
+// newton) takes the first 3 residual rows, the masked constraints, and
+// u = u_prev; only its z block is read.
+template <typename T>
+__device__ void stage_quads(const T* z, const T* u, const T* lam, T rho, bool terminal, int n_con,
+                            const T* tab, int n, const T* sc, T* Hs, T* Gs) {
+  for (int i = 0; i < NQ * NQ; ++i) Hs[i] = T(0);
+  for (int i = 0; i < NQ; ++i) Gs[i] = T(0);
+  const T s = z[0], nn = z[1], mu = z[2], vx = z[3], vy = z[4], delta = z[6];
+  const T lf = sc[LF], lr = sc[LR];
+  // ---- residual rows (stage_residuals)
+  T dvref;
+  const T vref = lookup_d(tab + 3 * n, n, s, sc, dvref);
+  const T vx_safe = vx < T(1e-3) ? T(1e-3) : vx;
+  // jnp.maximum's derivative: 1 above the floor, 1/2 on it, 0 below
+  const T gate = vx > T(1e-3) ? T(1) : (vx == T(1e-3) ? T(0.5) : T(0));
+  const T q = vy / vx_safe;
+  const T sq_b = m_sqrt(sc[QB]);
+  const T datan = sq_b / (T(1) + q * q);
+  const T kin = lr / (lf + lr);
+  const T bk = delta * kin;
+  const T b_dyn = m_atan(vy / vx_safe);
+  const T b_kin = m_atan(delta * lr / (lf + lr));
+  const T sq_n = m_sqrt(sc[QN]), sq_mu = m_sqrt(sc[QMU]);
+  const T sq_d = m_sqrt(sc[RDELTA]), sq_t = m_sqrt(sc[RTHR]);
+  const T two = T(2), one = T(1);
+  {
+    const int c[1] = {1};
+    const T v[1] = {sq_n};
+    add_row(Hs, Gs, c, v, two, one, sq_n * nn);
+  }
+  {
+    const int c[1] = {2};
+    const T v[1] = {sq_mu};
+    add_row(Hs, Gs, c, v, two, one, sq_mu * mu);
+  }
+  {
+    const int c[1] = {4};
+    const T v[1] = {one};
+    add_row(Hs, Gs, c, v, two, one, vy);
+  }
+  if (!terminal) {
+    {
+      const int c[2] = {0, 3};
+      const T v[2] = {-sc[VREF_SCALE] * dvref, one};
+      add_row(Hs, Gs, c, v, two, one, vx - sc[VREF_SCALE] * vref);
+    }
+    {
+      const int c[3] = {3, 4, 6};
+      const T v[3] = {-datan * q / vx_safe * gate, datan / vx_safe, -sq_b * kin / (one + bk * bk)};
+      add_row(Hs, Gs, c, v, two, one, sq_b * (b_dyn - b_kin));
+    }
+    {
+      const int c[2] = {NX, NZ};
+      const T v[2] = {-sq_d, sq_d};
+      add_row(Hs, Gs, c, v, two, one, sq_d * (u[0] - z[NX]));
+    }
+    {
+      const int c[2] = {NX + 1, NZ + 1};
+      const T v[2] = {-sq_t, sq_t};
+      add_row(Hs, Gs, c, v, two, one, sq_t * (u[1] - z[NX + 1]));
+    }
+  }
+  for (int i = 0; i < NQ; ++i) Gs[i] = two * Gs[i];
+  // ---- constraint rows (tightened band; masked at the terminal stage)
+  T g[N_CON + 2], phi[N_CON + 2], act[N_CON + 2];
+  constraints(z, u, terminal, sc[MARGIN], n_con, tab, n, sc, g);
+  for (int i = 0; i < n_con; ++i) {
+    phi[i] = relu_nan(lam[i] + rho * g[i]);
+    act[i] = phi[i] > T(0) ? rho : T(0);
+  }
+  T dnl, dnr;
+  lookup_d(tab + 1 * n, n, s, sc, dnl);
+  lookup_d(tab + 2 * n, n, s, sc, dnr);
+  const T sgn = mu >= T(0) ? one : -one;
+  const T abs_mu = mu >= T(0) ? mu : -mu;
+  const T lon_mu = sc[HALF_LEN] * m_cos(abs_mu) * sgn;
+  const T lat_mu = -sc[HALF_WID] * m_sin(mu);
+  {
+    const int c[3] = {0, 1, 2};
+    const T v[3] = {-dnl, one, -lon_mu + lat_mu};
+    add_row(Hs, Gs, c, v, one, act[0], phi[0]);
+  }
+  {
+    const int c[3] = {0, 1, 2};
+    const T v[3] = {-dnr, -one, lon_mu + lat_mu};
+    add_row(Hs, Gs, c, v, one, act[1], phi[1]);
+  }
+  // rows 2-13: one +-1 entry each
+  const int box_col[12] = {0, 2, 2, 3, 6, 6, 7, 7, NZ, NZ, NZ + 1, NZ + 1};
+  const T box_val[12] = {-one, one, -one, -one, one, -one, one, -one, one, -one, one, -one};
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    const int c[1] = {box_col[i]};
+    const T v[1] = {box_val[i]};
+    add_row(Hs, Gs, c, v, one, act[2 + i], phi[2 + i]);
+  }
+  if (n_con == N_CON + 2) {
+    const T m = sc[MASS];
+    const TyreD<T> t = tyre_partials(vx, vy, z[5], delta, sc);
+    const T wheelbase = lf + lr;
+    const T cf = sc[DF] * lr * m * T(GRAV) / wheelbase;
+    const T cr = sc[DR] * lf * m * T(GRAV) / wheelbase;
+    const T cap_f = cf * cf, cap_r = cr * cr;
+    const T dlong = two * (T(0.5) * (sc[CM] * z[7])) * (T(0.5) * sc[CM]);
+    {
+      const int c[5] = {3, 4, 5, 6, 7};
+      const T v[5] = {two * t.Fy_f * t.f_vx / cap_f, two * t.Fy_f * t.f_vy / cap_f,
+                      two * t.Fy_f * t.f_r / cap_f, two * t.Fy_f * t.f_d / cap_f, dlong / cap_f};
+      add_row(Hs, Gs, c, v, one, act[14], phi[14]);
+    }
+    {
+      const int c[4] = {3, 4, 5, 7};
+      const T v[4] = {two * t.Fy_r * t.r_vx / cap_r, two * t.Fy_r * t.r_vy / cap_r,
+                      two * t.Fy_r * t.r_r / cap_r, dlong / cap_r};
+      add_row(Hs, Gs, c, v, one, act[15], phi[15]);
+    }
+  }
+}
+
+// Elements of one instance's slice of shared memory (see Slice).
+__host__ __device__ inline size_t solve_slice_elems(int N, int L, int n_con) {
+  const size_t Np = (size_t)N + 1;
+  const size_t scr = (size_t)(L > 2 * (N + 1) ? L : 2 * (N + 1));
+  return Np * NZ + (size_t)N * NU + Np * n_con       // zs, us, lam
+         + (size_t)N * NX * NZ                        // J
+         + Np * NQ * NQ + Np * NQ                     // H, G
+         + (size_t)N * NU + (size_t)N * NU * NZ       // ks, Ks
+         + NZ + NZ * NZ + NZ * NQ + NQ * NQ + NQ      // Vz, Vzz, P, Q, qv
+         + Np * L * NZ + (size_t)N * L * NU           // zall, uall
+         + scr + 1;                                   // scratch, ok
+}
+
+template <typename T>
+struct Slice {
+  T *zs, *us, *lam, *J, *H, *G, *ks, *Ks, *Vz, *Vzz, *P, *Q, *qv, *zall, *uall, *scr, *ok;
+  __device__ Slice(T* p, int N, int L, int n_con) {
+    const int Np = N + 1;
+    zs = p; p += Np * NZ;
+    us = p; p += N * NU;
+    lam = p; p += Np * n_con;
+    J = p; p += N * NX * NZ;
+    H = p; p += Np * NQ * NQ;
+    G = p; p += Np * NQ;
+    ks = p; p += N * NU;
+    Ks = p; p += N * NU * NZ;
+    Vz = p; p += NZ;
+    Vzz = p; p += NZ * NZ;
+    P = p; p += NZ * NQ;
+    Q = p; p += NQ * NQ;
+    qv = p; p += NQ;
+    zall = p; p += Np * L * NZ;
+    uall = p; p += N * L * NU;
+    scr = p; p += (L > 2 * Np ? L : 2 * Np);
+    ok = p;
+  }
+};
+
+// [A | B] of the augmented dynamics, element (m, a), from the stage's step
+// Jacobian Jk (NX x NZ, columns [x, u]): x_next does not depend on u_prev,
+// and u_prev' = u.
+template <typename T>
+__device__ __forceinline__ T F(const T* Jk, int m, int a) {
+  if (m < NX) {
+    if (a < NX) return Jk[m * NZ + a];
+    if (a < NZ) return T(0);
+    return Jk[m * NZ + a - NU];
+  }
+  return a == m + NU ? T(1) : T(0);
+}
+
+// The Riccati backward sweep for one instance, run by its warp: three
+// warp-synchronous phases per stage.  Leaves the gains in S.ks, S.Ks and
+// *S.ok = 0 if a feedforward gain was not finite.
+template <typename T>
+__device__ void riccati(Slice<T>& S, int N, T reg, int lane) {
+  // terminal value function: the z block of the terminal quads
+  const T* Hn = S.H + N * NQ * NQ;
+  for (int e = lane; e < NZ * NZ + NZ; e += WARP) {
+    if (e < NZ * NZ) S.Vzz[e] = Hn[(e / NZ) * NQ + e % NZ];
+    else S.Vz[e - NZ * NZ] = S.G[N * NQ + e - NZ * NZ];
+  }
+  if (lane == 0) *S.ok = T(1);
+  __syncwarp();
   for (int k = N - 1; k >= 0; --k) {
-    const T* Ak = A + k * NZ * NZ;
-    const T* Bk = B + k * NZ * NU;
-    // VzzA = Vzz A, VzzB = Vzz B, Qz = lz + A^T Vz, Qu = lu + B^T Vz
-    if (tid < NZ * NZ) {
-      const int i = tid / NZ, j = tid % NZ;
-      T acc = T(0);
-      for (int m = 0; m < NZ; ++m) acc += Vzz[i * NZ + m] * Ak[m * NZ + j];
-      VzzA[tid] = acc;
-    } else if (tid < NZ * NZ + NZ * NU) {
-      const int e = tid - NZ * NZ, i = e / NU, c = e % NU;
-      T acc = T(0);
-      for (int m = 0; m < NZ; ++m) acc += Vzz[i * NZ + m] * Bk[m * NU + c];
-      VzzB[e] = acc;
-    } else {
-      for (int e = tid - NZ * NZ - NZ * NU; e < NZ + NU; e += THREADS - NZ * NZ - NZ * NU) {
+    const T* Jk = S.J + k * NX * NZ;
+    const T* Hk = S.H + k * NQ * NQ;
+    const T* Gk = S.G + k * NQ;
+    // phase 1: P = Vzz [A|B] (columns u_prev are 0), qv = l + [A|B]' Vz
+    for (int e = lane; e < NZ * NZ + NQ; e += WARP) {
+      if (e < NZ * NZ) {
+        const int i = e / NZ, jj = e % NZ;
+        const int j = jj < NX ? jj : jj + NU;
         T acc = T(0);
-        if (e < NZ) {
-          for (int m = 0; m < NZ; ++m) acc += Ak[m * NZ + e] * Vz[m];
-          Qz[e] = lz[k * NZ + e] + acc;
-        } else {
-          const int c = e - NZ;
-          for (int m = 0; m < NZ; ++m) acc += Bk[m * NU + c] * Vz[m];
-          Qu[c] = lu[k * NU + c] + acc;
+        for (int m = 0; m < NX; ++m) acc += S.Vzz[i * NZ + m] * F(Jk, m, j);
+        if (j >= NZ) acc += S.Vzz[i * NZ + j - NU];
+        S.P[i * NQ + j] = acc;
+      } else {
+        const int a = e - NZ * NZ;
+        T acc = T(0);
+        for (int m = 0; m < NX; ++m) acc += F(Jk, m, a) * S.Vz[m];
+        if (a >= NZ) acc += S.Vz[a - NU];
+        S.qv[a] = Gk[a] + acc;
+      }
+    }
+    __syncwarp();
+    // phase 2: Qzz, Quz, Quu = the quads + [A|B]' P
+    for (int e = lane; e < NZ * NZ + NU * NZ + NU * NU; e += WARP) {
+      int a, b;
+      if (e < NZ * NZ) {
+        a = e / NZ;
+        b = e % NZ;
+      } else if (e < NZ * NZ + NU * NZ) {
+        a = NZ + (e - NZ * NZ) / NZ;
+        b = (e - NZ * NZ) % NZ;
+      } else {
+        a = NZ + (e - NZ * NZ - NU * NZ) / NU;
+        b = NZ + (e - NZ * NZ - NU * NZ) % NU;
+      }
+      T acc = T(0);
+      if (b < NX || b >= NZ) {  // P's u_prev columns are 0
+        if (a < NX || a >= NZ) {
+          for (int m = 0; m < NX; ++m) acc += F(Jk, m, a) * S.P[m * NQ + b];
+          if (a >= NZ) acc += S.P[(a - NU) * NQ + b];
+        }
+      }
+      S.Q[a * NQ + b] = Hk[a * NQ + b] + acc;
+    }
+    __syncwarp();
+    // phase 3: [k | K] = -(Quu + reg I)^{-1} [Qu | Quz] (closed-form 2x2
+    // inverse, on every lane), then Vz' = Qz + K'Quu k + K'Qu + Quz'k and
+    // Vzz' = Qzz + K'Quu K + K'Quz + Quz'K, symmetrised
+    const T* Quu = S.Q + NZ * NQ + NZ;      // row stride NQ
+    const T* Quz = S.Q + NZ * NQ;           // row stride NQ
+    const T q00 = Quu[0], q01 = Quu[1], q10 = Quu[NQ], q11 = Quu[NQ + 1];
+    const T ra = q00 + reg, rb = q01, rc = q10, rd = q11 + reg;
+    const T det = ra * rd - rb * rc;
+    const T i00 = rd / det, i01 = -rb / det, i10 = -rc / det, i11 = ra / det;
+    const T* qu = S.qv + NZ;
+    const T k0 = -(i00 * qu[0] + i01 * qu[1]);
+    const T k1 = -(i10 * qu[0] + i11 * qu[1]);
+    for (int e = lane; e < NZ * (NZ + 1) / 2 + NZ; e += WARP) {
+      if (e < NZ * (NZ + 1) / 2) {
+        // (i, j), i <= j, row-major over the upper triangle
+        int i = 0, rem = e;
+        while (rem >= NZ - i) {
+          rem -= NZ - i;
+          ++i;
+        }
+        const int j = i + rem;
+        const T K0i = -(i00 * Quz[i] + i01 * Quz[NQ + i]);
+        const T K1i = -(i10 * Quz[i] + i11 * Quz[NQ + i]);
+        const T K0j = -(i00 * Quz[j] + i01 * Quz[NQ + j]);
+        const T K1j = -(i10 * Quz[j] + i11 * Quz[NQ + j]);
+        const T KQ0i = K0i * q00 + K1i * q10, KQ1i = K0i * q01 + K1i * q11;
+        const T KQ0j = K0j * q00 + K1j * q10, KQ1j = K0j * q01 + K1j * q11;
+        const T vij = S.Q[i * NQ + j] + (KQ0i * K0j + KQ1i * K1j) +
+                      (K0i * Quz[j] + K1i * Quz[NQ + j]) + (Quz[i] * K0j + Quz[NQ + i] * K1j);
+        const T vji = S.Q[j * NQ + i] + (KQ0j * K0i + KQ1j * K1i) +
+                      (K0j * Quz[i] + K1j * Quz[NQ + i]) + (Quz[j] * K0i + Quz[NQ + j] * K1i);
+        const T sym = T(0.5) * (vij + vji);
+        S.Vzz[i * NZ + j] = sym;
+        S.Vzz[j * NZ + i] = sym;
+      } else {
+        const int j = e - NZ * (NZ + 1) / 2;
+        const T K0j = -(i00 * Quz[j] + i01 * Quz[NQ + j]);
+        const T K1j = -(i10 * Quz[j] + i11 * Quz[NQ + j]);
+        const T KQ0j = K0j * q00 + K1j * q10, KQ1j = K0j * q01 + K1j * q11;
+        S.Vz[j] = S.qv[j] + (KQ0j * k0 + KQ1j * k1) + (K0j * qu[0] + K1j * qu[1]) +
+                  (Quz[j] * k0 + Quz[NQ + j] * k1);
+        S.Ks[(k * NU + 0) * NZ + j] = K0j;
+        S.Ks[(k * NU + 1) * NZ + j] = K1j;
+        if (j == 0) {
+          S.ks[k * NU + 0] = k0;
+          S.ks[k * NU + 1] = k1;
+          if (!(m_finite(k0) && m_finite(k1))) *S.ok = T(0);
         }
       }
     }
-    __syncthreads();
-    // Qzz = lzz + A^T (Vzz A), Quz = luz + B^T (Vzz A), Quu = luu + B^T (Vzz B)
-    if (tid < NZ * NZ) {
-      const int i = tid / NZ, j = tid % NZ;
-      T acc = T(0);
-      for (int m = 0; m < NZ; ++m) acc += Ak[m * NZ + i] * VzzA[m * NZ + j];
-      Qzz[tid] = lzz[k * NZ * NZ + tid] + acc;
-    } else if (tid < NZ * NZ + NU * NZ) {
-      const int e = tid - NZ * NZ, c = e / NZ, j = e % NZ;
-      T acc = T(0);
-      for (int m = 0; m < NZ; ++m) acc += Bk[m * NU + c] * VzzA[m * NZ + j];
-      Quz[e] = luz[k * NU * NZ + e] + acc;
-    } else if (tid < NZ * NZ + NU * NZ + NU * NU) {
-      const int e = tid - NZ * NZ - NU * NZ, a = e / NU, c = e % NU;
-      T acc = T(0);
-      for (int m = 0; m < NZ; ++m) acc += Bk[m * NU + a] * VzzB[m * NU + c];
-      Quu[e] = luu[k * NU * NU + e] + acc;
-    }
-    __syncthreads();
-    // [k | K] = -(Quu + reg I)^{-1} [Qu | Quz], closed-form 2x2 inverse
-    if (tid < NU * (1 + NZ)) {
-      const int c = tid / (1 + NZ), col = tid % (1 + NZ);
-      const T a = Quu[0] + reg, b = Quu[1], cc = Quu[2], d = Quu[3] + reg;
-      const T det = a * d - b * cc;
-      const T i0 = (c == 0 ? d : -cc) / det;
-      const T i1 = (c == 0 ? -b : a) / det;
-      const T r0 = col == 0 ? Qu[0] : Quz[0 * NZ + col - 1];
-      const T r1 = col == 0 ? Qu[1] : Quz[1 * NZ + col - 1];
-      const T v = -(i0 * r0 + i1 * r1);
-      if (col == 0) ks[k * NU + c] = v;
-      else Ks[(k * NU + c) * NZ + col - 1] = v;
-    }
-    __syncthreads();
-    const T* kk = ks + k * NU;
-    const T* KK = Ks + k * NU * NZ;
-    // Vz' = Qz + K^T Quu k + K^T Qu + Quz^T k
-    // Vzz' = Qzz + K^T Quu K + K^T Quz + Quz^T K   (symmetrised below)
-    if (tid < NZ * NZ) {
-      const int i = tid / NZ, j = tid % NZ;
-      const T KQ0 = KK[0 * NZ + i] * Quu[0] + KK[1 * NZ + i] * Quu[2];
-      const T KQ1 = KK[0 * NZ + i] * Quu[1] + KK[1 * NZ + i] * Quu[3];
-      Vtmp[tid] = Qzz[tid] + (KQ0 * KK[0 * NZ + j] + KQ1 * KK[1 * NZ + j])
-                  + (KK[0 * NZ + i] * Quz[0 * NZ + j] + KK[1 * NZ + i] * Quz[1 * NZ + j])
-                  + (Quz[0 * NZ + i] * KK[0 * NZ + j] + Quz[1 * NZ + i] * KK[1 * NZ + j]);
-    } else if (tid < NZ * NZ + NZ) {
-      const int j = tid - NZ * NZ;
-      const T KQ0 = KK[0 * NZ + j] * Quu[0] + KK[1 * NZ + j] * Quu[2];
-      const T KQ1 = KK[0 * NZ + j] * Quu[1] + KK[1 * NZ + j] * Quu[3];
-      Vz_new[j] = Qz[j] + (KQ0 * kk[0] + KQ1 * kk[1])
-                  + (KK[0 * NZ + j] * Qu[0] + KK[1 * NZ + j] * Qu[1])
-                  + (Quz[0 * NZ + j] * kk[0] + Quz[1 * NZ + j] * kk[1]);
-    } else if (tid == NZ * NZ + NZ) {
-      if (!(m_finite(kk[0]) && m_finite(kk[1]))) ok_s = false;
-    }
-    __syncthreads();
-    if (tid < NZ * NZ) {
-      const int i = tid / NZ, j = tid % NZ;
-      Vzz[tid] = T(0.5) * (Vtmp[i * NZ + j] + Vtmp[j * NZ + i]);
-    } else if (tid < NZ * NZ + NZ) {
-      Vz[tid - NZ * NZ] = Vz_new[tid - NZ * NZ];
-    }
-    __syncthreads();
+    __syncwarp();
   }
+}
 
-  // ------------------------------------------------------ ladder rollout
-  if (tid < L) {
-    const T alpha = alphas[tid];
-    T z[NZ], u[NU];
-#pragma unroll
-    for (int i = 0; i < NZ; ++i) {
-      z[i] = zs[i];
-      zall[tid * NZ + i] = z[i];
-    }
-    T acc = T(0);
+// The whole solve for B instances, one warp each (see the note at the top).
+template <typename T>
+__global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
+    const T* __restrict__ z0, const T* __restrict__ us_init, const T* __restrict__ lam_init,
+    const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
+    T* __restrict__ us_out, T* __restrict__ zs_out, T* __restrict__ lam_out,
+    T* __restrict__ cost_out, T* __restrict__ viol_out, int Bt, int W, int N, int L, int n_con,
+    int n, int substeps, int al_iters, int ilqr_iters, T rho_init, T rho_scale, T reg_init) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sc = reinterpret_cast<T*>(smem_raw);
+  T* tab = sc + NS;
+  for (int i = threadIdx.x; i < NS; i += blockDim.x) sc[i] = scal[i];
+  for (int i = threadIdx.x; i < 4 * n; i += blockDim.x) tab[i] = tables[i];
+  __syncthreads();
+
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int b = blockIdx.x * W + warp;
+  if (b >= Bt) return;  // no block-wide barrier follows
+  Slice<T> S(tab + 4 * n + (size_t)warp * solve_slice_elems(N, L, n_con), N, L, n_con);
+  const int Np = N + 1;
+
+  // inputs and the rollout of us_init
+  const T* z0b = z0 + (size_t)b * NZ;
+  for (int e = lane; e < N * NU; e += WARP) S.us[e] = us_init[(size_t)b * N * NU + e];
+  for (int e = lane; e < Np * n_con; e += WARP) S.lam[e] = lam_init[(size_t)b * Np * n_con + e];
+  __syncwarp();
+  if (lane == 0) {
+    T z[NZ];
+    for (int i = 0; i < NZ; ++i) S.zs[i] = z[i] = z0b[i];
     for (int k = 0; k < N; ++k) {
-      const T* zr = zs + k * NZ;
-#pragma unroll
-      for (int c = 0; c < NU; ++c) {
-        T fb = T(0);
-        for (int j = 0; j < NZ; ++j) fb += Ks[(k * NU + c) * NZ + j] * (z[j] - zr[j]);
-        u[c] = us[k * NU + c] + alpha * ks[k * NU + c] + fb;
-      }
-      acc += al_stage_cost(z, u, lams + k * n_con, n_con, tab, n, sc);
-      dyn_step(z, u, tab, n, sc, substeps);
-#pragma unroll
-      for (int c = 0; c < NU; ++c) uall[(k * L + tid) * NU + c] = u[c];
-#pragma unroll
-      for (int i = 0; i < NZ; ++i) zall[((k + 1) * L + tid) * NZ + i] = z[i];
+      dyn_step(z, S.us + k * NU, tab, n, sc, substeps);
+      for (int i = 0; i < NZ; ++i) S.zs[(k + 1) * NZ + i] = z[i];
     }
-    const T c = acc + al_terminal_cost(z, lams + N * n_con, n_con, tab, n, sc);
-    costs[tid] = m_finite(c) ? c : m_inf(c);
   }
-  __syncthreads();
+  __syncwarp();
 
-  // ----------------------------------------- pick the lowest-index best rung
-  if (tid == 0) {
-    T best = costs[0];
-    int idx = 0;
-    for (int r = 1; r < L; ++r) {
-      if (costs[r] < best) {
-        best = costs[r];
-        idx = r;
-      }
+  T rho = rho_init;
+  for (int al = 0; al < al_iters; ++al) {
+    // the AL cost of the current trajectory, summed in stage order
+    for (int k = lane; k < Np; k += WARP) {
+      S.scr[k] = k < N ? al_stage_cost(S.zs + k * NZ, S.us + k * NU, S.lam + k * n_con, rho, n_con,
+                                       tab, n, sc)
+                       : al_terminal_cost(S.zs + N * NZ, S.lam + N * n_con, rho, n_con, tab, n, sc);
     }
-    best_idx = idx;
-    *cost_out = best;
-    *ok_out = ok_s ? T(1) : T(0);
+    __syncwarp();
+    T stage_sum = T(0);
+    for (int k = 0; k < N; ++k) stage_sum += S.scr[k];
+    T cost = stage_sum + S.scr[N];
+    T reg = reg_init;
+    __syncwarp();
+
+    for (int it = 0; it < ilqr_iters; ++it) {
+      // linearisation: one (stage, tangent column) per lane
+      for (int e = lane; e < N * NZ; e += WARP) {
+        const int k = e / NZ, c = e % NZ;
+        T col[NX];
+        step_jacobian_column(S.zs + k * NZ, S.us + k * NU, c, tab, n, sc, substeps, col);
+        for (int i = 0; i < NX; ++i) S.J[(k * NX + i) * NZ + c] = col[i];
+      }
+      // GN quads: one stage per lane (the terminal at u = u_prev)
+      for (int k = lane; k < Np; k += WARP) {
+        const bool term = k == N;
+        const T* z = S.zs + k * NZ;
+        stage_quads(z, term ? z + NX : S.us + k * NU, S.lam + k * n_con, rho, term, n_con, tab,
+                    n, sc, S.H + k * NQ * NQ, S.G + k * NQ);
+      }
+      __syncwarp();
+      riccati(S, N, reg, lane);
+
+      // ladder: one rung per lane
+      if (lane < L) {
+        const T alpha = alphas[lane];
+        T z[NZ], u[NU];
+        for (int i = 0; i < NZ; ++i) S.zall[lane * NZ + i] = z[i] = S.zs[i];
+        T acc = T(0);
+        for (int k = 0; k < N; ++k) {
+          const T* zr = S.zs + k * NZ;
+          for (int c = 0; c < NU; ++c) {
+            T fb = T(0);
+            for (int j = 0; j < NZ; ++j) fb += S.Ks[(k * NU + c) * NZ + j] * (z[j] - zr[j]);
+            u[c] = S.us[k * NU + c] + alpha * S.ks[k * NU + c] + fb;
+          }
+          acc += al_stage_cost(z, u, S.lam + k * n_con, rho, n_con, tab, n, sc);
+          dyn_step(z, u, tab, n, sc, substeps);
+          for (int c = 0; c < NU; ++c) S.uall[(k * L + lane) * NU + c] = u[c];
+          for (int i = 0; i < NZ; ++i) S.zall[((k + 1) * L + lane) * NZ + i] = z[i];
+        }
+        const T c = acc + al_terminal_cost(z, S.lam + N * n_con, rho, n_con, tab, n, sc);
+        S.scr[lane] = m_finite(c) ? c : m_inf(c);
+      }
+      __syncwarp();
+      // the lowest-index minimal rung, found by every lane
+      T new_cost = S.scr[0];
+      int best = 0;
+      for (int r = 1; r < L; ++r) {
+        if (S.scr[r] < new_cost) {
+          new_cost = S.scr[r];
+          best = r;
+        }
+      }
+      const bool improved = new_cost < cost && *S.ok > T(0.5);
+      if (improved) {
+        for (int e = lane; e < Np * NZ; e += WARP)
+          S.zs[e] = S.zall[((e / NZ) * L + best) * NZ + e % NZ];
+        for (int e = lane; e < N * NU; e += WARP)
+          S.us[e] = S.uall[((e / NU) * L + best) * NU + e % NU];
+        cost = new_cost;
+        const T half = reg * T(0.5);
+        reg = half < reg_init ? reg_init : half;
+      } else {
+        reg = reg * T(100);
+      }
+      __syncwarp();
+    }
+
+    // multiplier update on the tightened band, terminal input rows masked
+    for (int k = lane; k < Np; k += WARP) {
+      T g[N_CON + 2];
+      const T zero_u[NU] = {T(0), T(0)};
+      const bool term = k == N;
+      constraints(S.zs + k * NZ, term ? zero_u : S.us + k * NU, term, sc[MARGIN], n_con, tab, n,
+                  sc, g);
+      for (int i = 0; i < n_con; ++i)
+        S.lam[k * n_con + i] = relu_nan(S.lam[k * n_con + i] + rho * g[i]);
+    }
+    __syncwarp();
+    rho = rho * rho_scale;
   }
-  __syncthreads();
-  for (int e = tid; e < (N + 1) * NZ; e += THREADS) {
-    const int k = e / NZ, i = e % NZ;
-    zs_out[e] = zall[(k * L + best_idx) * NZ + i];
+
+  // outputs: the AL-free cost and the max violation on the true band
+  for (int k = lane; k < Np; k += WARP) {
+    const T zero_u[NU] = {T(0), T(0)};
+    const bool term = k == N;
+    const T* z = S.zs + k * NZ;
+    S.scr[k] = term ? terminal_cost(z, sc) : stage_cost(z, S.us + k * NU, tab, n, sc);
+    T g[N_CON + 2];
+    constraints(z, term ? zero_u : S.us + k * NU, term, T(0), n_con, tab, n, sc, g);
+    T v = -m_inf(T(0));
+    for (int i = 0; i < n_con; ++i)
+      if (!term || i < 10 || i >= N_CON) v = max_nan(v, g[i]);
+    S.scr[Np + k] = v;
   }
-  for (int e = tid; e < N * NU; e += THREADS) {
-    const int k = e / NU, c = e % NU;
-    us_out[e] = uall[(k * L + best_idx) * NU + c];
+  __syncwarp();
+  for (int e = lane; e < Np * NZ; e += WARP) zs_out[(size_t)b * Np * NZ + e] = S.zs[e];
+  for (int e = lane; e < N * NU; e += WARP) us_out[(size_t)b * N * NU + e] = S.us[e];
+  for (int e = lane; e < Np * n_con; e += WARP) lam_out[(size_t)b * Np * n_con + e] = S.lam[e];
+  if (lane == 0) {
+    T stage_sum = T(0), viol = S.scr[Np];
+    for (int k = 0; k < N; ++k) stage_sum += S.scr[k];
+    for (int k = 1; k < N; ++k) viol = max_nan(viol, S.scr[Np + k]);
+    cost_out[b] = stage_sum + S.scr[N];
+    viol_out[b] = max_nan(viol, S.scr[Np + N]);
   }
 }
 
-// One OCP; its reg is the `reg` entry of `scal`.
+// Dynamic shared memory of one block of W instances, or 0 if the sizes are
+// not ones the kernel takes.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) ilqr_kernel(
-    const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ lz,
-    const T* __restrict__ lu, const T* __restrict__ lzz, const T* __restrict__ luu,
-    const T* __restrict__ luz, const T* __restrict__ Vz, const T* __restrict__ Vzz,
-    const T* __restrict__ zs, const T* __restrict__ us, const T* __restrict__ lams,
-    const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
-    T* __restrict__ zs_out, T* __restrict__ us_out, T* __restrict__ cost_out,
-    T* __restrict__ ok_out, int N, int L, int n_con, int n, int substeps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  ilqr_iteration(reinterpret_cast<T*>(smem_raw), A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs,
-                 us, lams, tables, alphas, scal, scal[REG], zs_out, us_out, cost_out, ok_out,
-                 N, L, n_con, n, substeps);
-}
-
-// B independent OCPs, block b on instance b with reg = reg_b[b] (the `reg`
-// entry of the shared `scal` is ignored); tables, alphas and scal are shared.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) ilqr_batch_kernel(
-    const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ lz,
-    const T* __restrict__ lu, const T* __restrict__ lzz, const T* __restrict__ luu,
-    const T* __restrict__ luz, const T* __restrict__ Vz, const T* __restrict__ Vzz,
-    const T* __restrict__ zs, const T* __restrict__ us, const T* __restrict__ lams,
-    const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
-    const T* __restrict__ reg_b, T* __restrict__ zs_out, T* __restrict__ us_out,
-    T* __restrict__ cost_out, T* __restrict__ ok_out, int N, int L, int n_con, int n,
-    int substeps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const size_t b = blockIdx.x;
-  const size_t zn = (size_t)(N + 1) * NZ, un = (size_t)N * NU;
-  ilqr_iteration(reinterpret_cast<T*>(smem_raw), A + b * N * NZ * NZ, B + b * N * NZ * NU,
-                 lz + b * N * NZ, lu + b * un, lzz + b * N * NZ * NZ, luu + b * N * NU * NU,
-                 luz + b * N * NU * NZ, Vz + b * NZ, Vzz + b * NZ * NZ, zs + b * zn,
-                 us + b * un, lams + b * (N + 1) * n_con, tables, alphas, scal, reg_b[b],
-                 zs_out + b * zn, us_out + b * un, cost_out + b, ok_out + b, N, L, n_con, n,
-                 substeps);
-}
-
-// Dynamic shared memory of one block (see the carve-up in ilqr_iteration),
-// or 0 if the sizes are not ones the kernels take.
-template <typename T>
-size_t smem_bytes(int N, int L, int n_con, int n, int substeps) {
-  if (N < 1 || L < 1 || L > THREADS || n < 2 || substeps < 1 ||
+size_t solve_smem_bytes(int W, int N, int L, int n_con, int n) {
+  if (W < 1 || W > MAX_WARPS || N < 1 || L < 1 || L > WARP || n < 2 ||
       (n_con != N_CON && n_con != N_CON + 2)) {
     return 0;
   }
-  const size_t elems = NS + 4 * (size_t)n + NZ + 4 * NZ * NZ + NZ * NU + NZ + NU +
-                       NU * NU + NU * NZ + NZ + (size_t)N * NU + (size_t)N * NU * NZ +
-                       (size_t)(N + 1) * L * NZ + (size_t)N * L * NU + L;
-  return elems * sizeof(T);
+  const size_t bytes = (NS + 4 * (size_t)n + W * solve_slice_elems(N, L, n_con)) * sizeof(T);
+  return bytes <= MAX_SMEM ? bytes : 0;
 }
 
 // Above 48 KB a kernel needs its dynamic shared memory limit raised first.
@@ -520,81 +957,51 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 template <typename T>
-int launch(const T* A, const T* B, const T* lz, const T* lu, const T* lzz, const T* luu,
-           const T* luz, const T* Vz, const T* Vzz, const T* zs, const T* us, const T* lams,
-           const T* tables, const T* alphas, const T* scal, T* zs_out, T* us_out,
-           T* cost_out, T* ok_out, int N, int L, int n_con, int n, int substeps,
-           void* stream) {
-  const size_t bytes = smem_bytes<T>(N, L, n_con, n, substeps);
-  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(ilqr_kernel<T>, bytes);
+int launch_solve(const T* z0, const T* us_init, const T* lam_init, const T* tables,
+                 const T* alphas, const T* scal, T* us_out, T* zs_out, T* lam_out, T* cost_out,
+                 T* viol_out, int Bt, int W, int N, int L, int n_con, int n, int substeps,
+                 int al_iters, int ilqr_iters, double rho_init, double rho_scale, double reg_init,
+                 void* stream) {
+  const size_t bytes = solve_smem_bytes<T>(W, N, L, n_con, n);
+  if (bytes == 0 || Bt < 1 || substeps < 1 || al_iters < 0 || ilqr_iters < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = allow_smem(ilqr_solve_kernel<T>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ilqr_kernel<T><<<1, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas, scal,
-      zs_out, us_out, cost_out, ok_out, N, L, n_con, n, substeps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_batch(const T* A, const T* B, const T* lz, const T* lu, const T* lzz,
-                 const T* luu, const T* luz, const T* Vz, const T* Vzz, const T* zs,
-                 const T* us, const T* lams, const T* tables, const T* alphas, const T* scal,
-                 const T* reg_b, T* zs_out, T* us_out, T* cost_out, T* ok_out, int Bt, int N,
-                 int L, int n_con, int n, int substeps, void* stream) {
-  const size_t bytes = smem_bytes<T>(N, L, n_con, n, substeps);
-  if (bytes == 0 || Bt < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(ilqr_batch_kernel<T>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ilqr_batch_kernel<T><<<Bt, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas, scal, reg_b,
-      zs_out, us_out, cost_out, ok_out, N, L, n_con, n, substeps);
+  const int grid = (Bt + W - 1) / W;
+  ilqr_solve_kernel<T><<<grid, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out, cost_out, viol_out, Bt, W, N, L, n_con, n, substeps, al_iters, ilqr_iters, T(rho_init), T(rho_scale), T(reg_init));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int lto_ilqr_backward_forward_f32(
-    const float* A, const float* B, const float* lz, const float* lu, const float* lzz,
-    const float* luu, const float* luz, const float* Vz, const float* Vzz, const float* zs,
-    const float* us, const float* lams, const float* tables, const float* alphas,
-    const float* scal, float* zs_out, float* us_out, float* cost_out, float* ok_out, int N,
-    int L, int n_con, int n, int substeps, void* stream) {
-  return launch<float>(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas,
-                       scal, zs_out, us_out, cost_out, ok_out, N, L, n_con, n, substeps,
-                       stream);
+extern "C" int lto_ilqr_solve_f32(const float* z0, const float* us_init, const float* lam_init,
+                                  const float* tables, const float* alphas, const float* scal,
+                                  float* us_out, float* zs_out, float* lam_out, float* cost_out,
+                                  float* viol_out, int Bt, int W, int N, int L, int n_con, int n,
+                                  int substeps, int al_iters, int ilqr_iters, double rho_init,
+                                  double rho_scale, double reg_init, void* stream) {
+  return launch_solve<float>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out,
+                             cost_out, viol_out, Bt, W, N, L, n_con, n, substeps, al_iters,
+                             ilqr_iters, rho_init, rho_scale, reg_init, stream);
 }
 
-extern "C" int lto_ilqr_backward_forward_f64(
-    const double* A, const double* B, const double* lz, const double* lu, const double* lzz,
-    const double* luu, const double* luz, const double* Vz, const double* Vzz,
-    const double* zs, const double* us, const double* lams, const double* tables,
-    const double* alphas, const double* scal, double* zs_out, double* us_out,
-    double* cost_out, double* ok_out, int N, int L, int n_con, int n, int substeps,
-    void* stream) {
-  return launch<double>(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas,
-                        scal, zs_out, us_out, cost_out, ok_out, N, L, n_con, n, substeps,
-                        stream);
+extern "C" int lto_ilqr_solve_f64(const double* z0, const double* us_init,
+                                  const double* lam_init, const double* tables,
+                                  const double* alphas, const double* scal, double* us_out,
+                                  double* zs_out, double* lam_out, double* cost_out,
+                                  double* viol_out, int Bt, int W, int N, int L, int n_con, int n,
+                                  int substeps, int al_iters, int ilqr_iters, double rho_init,
+                                  double rho_scale, double reg_init, void* stream) {
+  return launch_solve<double>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out,
+                              lam_out, cost_out, viol_out, Bt, W, N, L, n_con, n, substeps,
+                              al_iters, ilqr_iters, rho_init, rho_scale, reg_init, stream);
 }
 
-extern "C" int lto_ilqr_backward_forward_batch_f32(
-    const float* A, const float* B, const float* lz, const float* lu, const float* lzz,
-    const float* luu, const float* luz, const float* Vz, const float* Vzz, const float* zs,
-    const float* us, const float* lams, const float* tables, const float* alphas,
-    const float* scal, const float* reg_b, float* zs_out, float* us_out, float* cost_out,
-    float* ok_out, int Bt, int N, int L, int n_con, int n, int substeps, void* stream) {
-  return launch_batch<float>(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables,
-                             alphas, scal, reg_b, zs_out, us_out, cost_out, ok_out, Bt, N, L,
-                             n_con, n, substeps, stream);
-}
-
-extern "C" int lto_ilqr_backward_forward_batch_f64(
-    const double* A, const double* B, const double* lz, const double* lu, const double* lzz,
-    const double* luu, const double* luz, const double* Vz, const double* Vzz,
-    const double* zs, const double* us, const double* lams, const double* tables,
-    const double* alphas, const double* scal, const double* reg_b, double* zs_out,
-    double* us_out, double* cost_out, double* ok_out, int Bt, int N, int L, int n_con, int n,
-    int substeps, void* stream) {
-  return launch_batch<double>(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables,
-                              alphas, scal, reg_b, zs_out, us_out, cost_out, ok_out, Bt, N, L,
-                              n_con, n, substeps, stream);
+// Dynamic shared memory of a launch (element size 4 or 8), 0 if refused.
+extern "C" long long lto_ilqr_solve_smem_bytes(int elem_size, int W, int N, int L, int n_con,
+                                               int n) {
+  const size_t bytes = elem_size == 8 ? solve_smem_bytes<double>(W, N, L, n_con, n)
+                                      : solve_smem_bytes<float>(W, N, L, n_con, n);
+  return static_cast<long long>(bytes);
 }

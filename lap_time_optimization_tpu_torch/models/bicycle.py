@@ -18,7 +18,7 @@ Every function takes states and inputs with any leading batch shape
 (`x[..., i]`), so a horizon, a line-search ladder or a `torch.func.vmap`
 lane all go through the same code.  The discrete step is explicit RK4 with
 substeps.  Torque vectoring (`Mtv = ptv·(tan(δ)·vx/L − r)`) is on behind
-`enable_torque_vectoring`, here and in the fused iteration kernel alike.
+`enable_torque_vectoring`, here and in the CUDA solve kernel alike.
 """
 
 from __future__ import annotations

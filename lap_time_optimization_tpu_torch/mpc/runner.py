@@ -24,6 +24,7 @@ import torch
 from lap_time_optimization_tpu_torch.models.bicycle import NU, NX
 from lap_time_optimization_tpu_torch.mpc import solver as solver_mod
 from lap_time_optimization_tpu_torch.mpc.solver import n_con
+from lap_time_optimization_tpu_torch.ops import ilqr
 from lap_time_optimization_tpu_torch.utils import checkpoint
 
 #: Reference initial state [s, n, mu, vx, vy, r, steer, throttle]
@@ -40,9 +41,10 @@ class SimResult(NamedTuple):
     sdot: torch.Tensor  # (steps,) track progress rate per step
 
 
-def _presolve(model, p, cfg, x0, solve=solver_mod.solve):
+def _presolve(model, p, cfg, x0, solve=solver_mod.solve, pack=None):
     """Burn in the t=0 warm start (do_mpc's set_initial_guess analogue,
-    reference src/mpc.py:118) and return the initial carry."""
+    reference src/mpc.py:118) and return the initial carry.  `pack`: the
+    solve's constants (`ops.ilqr.pack`), built by the calling loop."""
     lead = x0.shape[:-1]
     N = cfg.horizon
     us_warm = x0.new_zeros(lead + (N, NU))
@@ -50,17 +52,17 @@ def _presolve(model, p, cfg, x0, solve=solver_mod.solve):
     u_prev = x0.new_zeros(lead + (NU,))
     z0_init = torch.cat([x0, u_prev], dim=-1)
     for _ in range(2):
-        warm = solve(model, p, cfg, z0_init, us_warm, lam_warm)
+        warm = solve(model, p, cfg, z0_init, us_warm, lam_warm, pack)
         us_warm, lam_warm = warm.us, warm.lam
     return (x0, us_warm, lam_warm, u_prev)
 
 
-def _step_fn(model, p, cfg, carry, solve=solver_mod.solve):
+def _step_fn(model, p, cfg, carry, solve=solver_mod.solve, pack=None):
     """One control cycle: solve, clip the applied input, integrate the plant,
     shift the warm start.  Returns (carry, (x_next, u0, cost, violation, sdot))."""
     x, us_warm, lam_warm, u_prev = carry
     z0 = torch.cat([x, u_prev], dim=-1)
-    res = solve(model, p, cfg, z0, us_warm, lam_warm)
+    res = solve(model, p, cfg, z0, us_warm, lam_warm, pack)
     # actuator saturation: the AL solver leaves O(1e-2) slack on the input
     # boxes at fixed iteration budgets; the physical actuators (and the
     # reference's hard NLP bounds, src/mpc/controller.py:79-103) cannot
@@ -81,15 +83,15 @@ def _step_fn(model, p, cfg, carry, solve=solver_mod.solve):
     return (x_next, us_next, lam_next, u0), out
 
 
-def _presolve_batch(model, p, cfg, x0_b):
+def _presolve_batch(model, p, cfg, x0_b, pack=None):
     """Batched burn-in (see `_presolve`): x0_b (B, NX), through `solver.solve_batch`."""
-    return _presolve(model, p, cfg, x0_b, solver_mod.solve_batch)
+    return _presolve(model, p, cfg, x0_b, solver_mod.solve_batch, pack)
 
 
-def _step_fn_batch(model, p, cfg, carry):
+def _step_fn_batch(model, p, cfg, carry, pack=None):
     """Batched control cycle (see `_step_fn`): one `solver.solve_batch` for
     all B instances, then the elementwise clip and the plant step on (B, ...)."""
-    return _step_fn(model, p, cfg, carry, solver_mod.solve_batch)
+    return _step_fn(model, p, cfg, carry, solver_mod.solve_batch, pack)
 
 
 def _empty_result(x0, steps) -> SimResult:
@@ -101,10 +103,10 @@ def _empty_result(x0, steps) -> SimResult:
     return SimResult(xs, x0.new_zeros(lead + (steps + 1, NU)), *scalars)
 
 
-def _advance(model, p, cfg, carry, out: SimResult, start, stop, step_fn=_step_fn):
+def _advance(model, p, cfg, carry, out: SimResult, start, stop, step_fn=_step_fn, pack=None):
     """Control cycles start..stop-1, written into `out`; returns the carry."""
     for t in range(start, stop):
-        carry, (x_next, u0, cost, viol, sdot) = step_fn(model, p, cfg, carry)
+        carry, (x_next, u0, cost, viol, sdot) = step_fn(model, p, cfg, carry, pack=pack)
         out.xs[..., t + 1, :] = x_next
         out.us[..., t + 1, :] = u0
         out.costs[..., t] = cost
@@ -115,9 +117,11 @@ def _advance(model, p, cfg, carry, out: SimResult, start, stop, step_fn=_step_fn
 
 def closed_loop(model, p, cfg, x0: torch.Tensor, steps: int) -> SimResult:
     """Run `steps` control cycles from x0 on x0's device: the presolve, then
-    `steps` × (solve → clip → plant → shift)."""
+    `steps` × (solve → clip → plant → shift).  The solve's constants are
+    packed once for the run."""
     out = _empty_result(x0, steps)
-    _advance(model, p, cfg, _presolve(model, p, cfg, x0), out, 0, steps)
+    pk = ilqr.pack(model, p, cfg)
+    _advance(model, p, cfg, _presolve(model, p, cfg, x0, pack=pk), out, 0, steps, _step_fn, pk)
     return out
 
 
@@ -128,8 +132,9 @@ def closed_loop_batch(model, p, cfg, x0_batch: torch.Tensor, steps: int) -> SimR
     xs (B, steps+1, NX), us (B, steps+1, NU), costs/violations/sdot
     (B, steps).  Instance b follows `closed_loop` from x0_batch[b]."""
     out = _empty_result(x0_batch, steps)
-    carry = _presolve_batch(model, p, cfg, x0_batch)
-    _advance(model, p, cfg, carry, out, 0, steps, _step_fn_batch)
+    pk = ilqr.pack(model, p, cfg)
+    carry = _presolve_batch(model, p, cfg, x0_batch, pk)
+    _advance(model, p, cfg, carry, out, 0, steps, _step_fn_batch, pk)
     return out
 
 
@@ -175,11 +180,12 @@ def closed_loop_chunked(model, p, cfg, x0: torch.Tensor, steps: int, chunk: int 
             carry = tuple(t(f"carry{i}") for i in range(4))
             for name, a in zip(SimResult._fields, out):
                 a[: state[name].shape[0]] = t(name)
+    pk = ilqr.pack(model, p, cfg)
     if carry is None:
-        carry = _presolve(model, p, cfg, x0)
+        carry = _presolve(model, p, cfg, x0, pack=pk)
     while done < steps:
         stop = min(done + chunk, steps)
-        carry = _advance(model, p, cfg, carry, out, done, stop)
+        carry = _advance(model, p, cfg, carry, out, done, stop, _step_fn, pk)
         done = stop
         if checkpoint_path is not None and done < steps:
             host = lambda a: a.detach().cpu().numpy()

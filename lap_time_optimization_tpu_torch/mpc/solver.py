@@ -6,17 +6,21 @@ input, z = [x (8), u_prev (2)], so the Δu penalty is Markovian, and every
 inequality is handled by one PHR augmented Lagrangian
     φ(g, λ, ρ) = 1/(2ρ)·(max(0, λ + ρ g)² − λ²).
 
-One iLQR iteration (`_iterate`) linearises the dynamics and
-quadraticises the AL cost stage-parallel in PyTorch, with analytic
-Jacobians, then runs the serial Riccati sweep and the line-search ladder in
-`ops.ilqr.backward_forward`: the hand-written CUDA kernel for CUDA tensors,
-its plain PyTorch twin for CPU tensors.  `solve_batch` solves B independent
-OCPs through the same code with a leading instance axis, one
-`ops.ilqr.backward_forward_batch` per iteration (`_iterate_batch`).
+On a CUDA device a whole solve is one launch of the hand-written kernel
+behind `ops.ilqr.solve` (csrc/ilqr.cu: the rollout, every AL round and
+iLQR iteration, the multiplier updates and the outputs, one warp per OCP).
+On the CPU `ops.ilqr.solve` runs the plain version, `_solve` below: each
+iLQR iteration (`_iterate`) linearises the dynamics and quadraticises the
+AL cost stage-parallel in PyTorch, with analytic Jacobians, then runs the
+serial Riccati sweep and the line-search ladder in the iteration twins
+`ops.ilqr.backward_forward_reference` (one OCP) /
+`backward_forward_batch_reference` (a leading instance axis, for
+`solve_batch`).  Accept/reject, regularisation escalation and the
+multiplier update stay tensors combined with `torch.where`, so the plain
+solve makes no host sync either.
 
-Accept/reject, regularisation escalation and the multiplier update stay
-tensors combined with `torch.where`, so a solve makes no host sync and a
-control cycle can later be captured in a CUDA graph.
+The solve's constants (`ops.ilqr.pack`) are built once by the closed loop
+that runs many solves and passed down; `solve` called alone builds its own.
 """
 
 from __future__ import annotations
@@ -370,7 +374,7 @@ def _terminal_quads_gauss_newton(model, p, z, lam, rho):
 
 
 def _kernel_inputs(model, p, cfg, zs, us, lams, rho):
-    """The iteration kernels' per-instance inputs, contiguous: stage
+    """The iteration twins' per-instance inputs, contiguous: stage
     Jacobians A, B, the GN stage quads and the terminal quads."""
     A, B = _linearize_joint(model, cfg, zs, us)
     quads = _quads_gauss_newton(model, p, zs[..., :-1, :], us, lams[..., :-1, :], rho)
@@ -378,30 +382,23 @@ def _kernel_inputs(model, p, cfg, zs, us, lams, rho):
     return [t.contiguous() for t in (A, B, *quads, Vz, Vzz)]
 
 
-def _iterate(model, p, cfg, zs, us, lams, rho, reg, tables, alphas, scal_tail):
-    """One iLQR iteration: linearisation + GN quads here, the serial Riccati
-    sweep + line-search ladder in `ops.ilqr.backward_forward`.  rho and reg
-    stay 0-d device tensors: the kernel's scalar vector is spliced together
-    on the device, so the loop uploads nothing."""
-    scal = torch.cat([rho.reshape(1), reg.reshape(1), scal_tail])
-    zs_new, us_new, new_cost, ok = ilqr.backward_forward(
-        *_kernel_inputs(model, p, cfg, zs, us, lams, rho),
-        zs.contiguous(), us.contiguous(), lams.contiguous(), tables, alphas, scal,
-        substeps=cfg.substeps,
-    )
-    return new_cost, zs_new, us_new, ok < 0.5
-
-
-def _iterate_batch(model, p, cfg, zs, us, lams, rho, reg, tables, alphas, scal_tail):
-    """`_iterate` for a batch of OCPs (leading axis B on zs, us, lams and
-    reg): the serial part runs in `ops.ilqr.backward_forward_batch`, with
-    instance b at reg[b]; the reg slot of the shared scalar vector is unused."""
-    scal = torch.cat([rho.reshape(1), torch.zeros_like(rho).reshape(1), scal_tail])
-    zs_new, us_new, new_cost, ok = ilqr.backward_forward_batch(
-        *_kernel_inputs(model, p, cfg, zs, us, lams, rho),
-        zs.contiguous(), us.contiguous(), lams.contiguous(), tables, alphas, scal, reg,
-        substeps=cfg.substeps,
-    )
+def _iterate(model, p, cfg, zs, us, lams, rho, reg, pk):
+    """One iLQR iteration in plain PyTorch: linearisation + GN quads here,
+    the serial Riccati sweep + line-search ladder in the iteration twin
+    (`backward_forward_reference` for one OCP, reg 0-d;
+    `backward_forward_batch_reference` for a batch, instance b at reg[b],
+    the reg slot of the shared scalar vector unused).  rho and reg stay
+    0-d device tensors: the scalar vector is spliced together on the
+    device, so the loop uploads nothing."""
+    inputs = (*_kernel_inputs(model, p, cfg, zs, us, lams, rho),
+              zs.contiguous(), us.contiguous(), lams.contiguous(), pk.tables, pk.alphas)
+    if reg.dim() == 0:
+        scal = torch.cat([rho.reshape(1), reg.reshape(1), pk.scal_tail])
+        out = ilqr.backward_forward_reference(*inputs, scal, substeps=cfg.substeps)
+    else:
+        scal = torch.cat([rho.reshape(1), torch.zeros_like(rho).reshape(1), pk.scal_tail])
+        out = ilqr.backward_forward_batch_reference(*inputs, scal, reg, substeps=cfg.substeps)
+    zs_new, us_new, new_cost, ok = out
     return new_cost, zs_new, us_new, ok < 0.5
 
 
@@ -413,28 +410,24 @@ def _update_multipliers(model, p, zs, us, lams, rho):
     return torch.clamp(lams + rho * g_all, min=0.0)
 
 
-def _solve(model, p, cfg, z0, us_init, lam_init, iterate) -> SolveResult:
-    """The AL rounds around `iterate`, for one OCP (z0 (NZ,)) or a batch
-    (z0 (B, NZ)).  One rho schedule for all instances; accept/reject and reg
-    escalation are per instance, through `torch.where` on masks of z0's
-    leading shape, with no host sync."""
+def _solve(model, p, cfg, z0, us_init, lam_init, pk) -> SolveResult:
+    """The plain solve: the AL rounds around `_iterate`, for one OCP
+    (z0 (NZ,)) or a batch (z0 (B, NZ)), with the constants `pk`.  One rho
+    schedule for all instances; accept/reject and reg escalation are per
+    instance, through `torch.where` on masks of z0's leading shape, with no
+    host sync."""
     if cfg.hessian_mode != "gauss_newton":
         raise NotImplementedError(f"hessian_mode={cfg.hessian_mode!r} is not ported yet")
     dtype, device = z0.dtype, z0.device
     zs = _rollout(model, cfg, z0, us_init)
     us, lams = us_init, lam_init
     rho = torch.full((), cfg.rho_init, dtype=dtype, device=device)
-    tables = ilqr.tables_matrix(model)
-    alphas = ilqr.ladder(cfg.n_linesearch, dtype, device)
-    scal_tail = ilqr.scal_tail(model, p, cfg)
 
     for _ in range(cfg.al_iters):
         cost = _total_al_cost(model, p, zs, us, lams, rho)
         reg = torch.full(z0.shape[:-1], cfg.reg_init, dtype=dtype, device=device)
         for _ in range(cfg.ilqr_iters):
-            new_cost, zs_new, us_new, diverged = iterate(
-                model, p, cfg, zs, us, lams, rho, reg, tables, alphas, scal_tail
-            )
+            new_cost, zs_new, us_new, diverged = _iterate(model, p, cfg, zs, us, lams, rho, reg, pk)
             improved = (new_cost < cost) & ~diverged
             take = improved[..., None, None]
             zs = torch.where(take, zs_new, zs)
@@ -453,17 +446,22 @@ def _solve(model, p, cfg, z0, us_init, lam_init, iterate) -> SolveResult:
     )
 
 
-def solve(model, p, cfg: SolverConfig, z0, us_init, lam_init) -> SolveResult:
+def solve(model, p, cfg: SolverConfig, z0, us_init, lam_init, pack=None) -> SolveResult:
     """Solve the horizon OCP from z0 (NZ,), warm-started at us_init (N, NU)
-    and lam_init (N+1, n_con); each iLQR iteration is one launch of the
-    one-OCP kernel on CUDA tensors."""
-    return _solve(model, p, cfg, z0, us_init, lam_init, _iterate)
+    and lam_init (N+1, n_con), with the constants `pack` (`ops.ilqr.pack`;
+    built here if None).  On CUDA tensors: one launch of the solve kernel."""
+    if z0.dim() != 1:
+        raise ValueError(f"solve takes one OCP, z0 (NZ,); got {tuple(z0.shape)}: use solve_batch")
+    pk = ilqr.pack(model, p, cfg) if pack is None else pack
+    return SolveResult(*ilqr.solve(model, p, cfg, z0, us_init, lam_init, pk))
 
 
-def solve_batch(model, p, cfg: SolverConfig, z0_b, us_init_b, lam_init_b) -> SolveResult:
+def solve_batch(model, p, cfg: SolverConfig, z0_b, us_init_b, lam_init_b, pack=None) -> SolveResult:
     """Solve B independent horizon OCPs (leading axis B on every argument
     and on every field of the result).  Per instance it is `solve`: the same
-    AL schedule, with per-instance step acceptance and reg escalation; each
-    iLQR iteration is one launch of the batch kernel for all B on CUDA
-    tensors."""
-    return _solve(model, p, cfg, z0_b, us_init_b, lam_init_b, _iterate_batch)
+    AL schedule, with per-instance step acceptance and reg escalation.  On
+    CUDA tensors: one launch of the solve kernel for all B."""
+    if z0_b.dim() != 2:
+        raise ValueError(f"solve_batch takes z0_b (B, NZ); got {tuple(z0_b.shape)}")
+    pk = ilqr.pack(model, p, cfg) if pack is None else pack
+    return SolveResult(*ilqr.solve(model, p, cfg, z0_b, us_init_b, lam_init_b, pk))

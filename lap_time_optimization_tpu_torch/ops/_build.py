@@ -65,10 +65,12 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def bind(lib: ctypes.CDLL, names, n_ptrs: int, n_ints: int) -> None:
+def bind(lib: ctypes.CDLL, names, n_ptrs: int, n_ints: int, n_doubles: int = 0) -> None:
     """Set the ctypes signature of entry points that take `n_ptrs` device
-    pointers, `n_ints` ints and the stream, and return cudaError_t."""
+    pointers, `n_ints` ints, `n_doubles` doubles and the stream, and return
+    cudaError_t."""
     for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_double] * n_doubles + [ctypes.c_void_p])
         fn.restype = ctypes.c_int

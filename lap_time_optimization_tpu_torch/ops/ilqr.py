@@ -1,34 +1,42 @@
-"""One fused AL-iLQR iteration: Riccati backward sweep + line-search ladder.
+"""The AL-iLQR solve of the horizon NMPC: one CUDA kernel for the whole solve.
 
-Port of two Pallas TPU kernels of `lap_time_optimization_tpu/ops/`:
-`pallas_ilqr.py::backward_forward` (one OCP) and
-`pallas_ilqr_batch.py::backward_forward_batch` (B independent OCPs, each
-with its own Levenberg reg).  Each has two implementations with one
-signature:
+Port of two Pallas TPU kernels of `lap_time_optimization_tpu/ops/`,
+`pallas_ilqr.py::backward_forward` (one AL-iLQR iteration of one OCP) and
+`pallas_ilqr_batch.py::backward_forward_batch` (the same for B OCPs, each
+with its own Levenberg reg), and of the eager code around them in
+`mpc/solver.py`: on the card one launch computes what `solver.solve` /
+`solver.solve_batch` compute.
 
-* `csrc/ilqr.cu` — CUDA C++ for sm_90a, one thread block per OCP
-  (see the note at the top of that file).  Compiled with the port's other
-  kernels by one `nvcc` call at first use (`ops/_build.py`), and called
-  through ctypes on PyTorch's current stream.
-* `backward_forward_reference` / `backward_forward_batch_reference` — the
-  same computation in plain PyTorch (one function, `_reference`, over any
-  leading instance shape): the Riccati scan and the ladder of the JAX
-  package's XLA path (mpc/solver.py `_backward_pass` + `_forward_pass`).
+* `solve` — the wrapper.  CUDA tensors go to `csrc/ilqr.cu`'s
+  `ilqr_solve_kernel` (CUDA C++ for sm_90a, one warp per OCP; see the note
+  at the top of that file), compiled with the port's other kernels by one
+  `nvcc` call at first use (`ops/_build.py`) and called through ctypes on
+  PyTorch's current stream.  It raises if the kernel cannot be built or
+  launched, or does not take the sizes; there is no fallback.  CPU tensors
+  go to the plain version, `solve_reference`.
+* `solve_reference` — the same solve in plain PyTorch: `mpc/solver.py`'s
+  `_solve` (AL rounds, accept/reject, reg escalation, multiplier update),
+  whose iterations run `backward_forward_reference` /
+  `backward_forward_batch_reference`: the Riccati scan and the ladder of
+  the JAX package's XLA path (mpc/solver.py `_backward_pass` +
+  `_forward_pass`), one function, `_reference`, over any leading instance
+  shape.  These iteration twins are also what the JAX package's Pallas
+  kernels are held against (tests/test_torch_ilqr*.py).
 
-`backward_forward` and `backward_forward_batch` dispatch on the tensors'
-device: CPU tensors go to the plain version, CUDA tensors to the kernel,
-which raises if it cannot be built or launched.  There is no fallback from
-CUDA to the plain version.
-
-Scalars ride in one vector `scal` (layout `SCAL_FIELDS`, the JAX kernel's
-plus `ptv`, the torque-vectoring gain: 0 when the model has torque
-vectoring off, so Mtv = ptv·(tan δ·vx/L − r) vanishes).  The constraint
-count (14, or 16 with the friction-ellipse rows) is `lams.shape[-1]`.
+The solve's constants are packed once (`pack`: the lookup tables, the
+ladder's step sizes and the scalar vector without rho and reg) by the
+closed loop that runs many solves, or by `solver.solve` called alone.
+Scalars ride in one vector (layout `SCAL_FIELDS`, the JAX kernel's plus
+`ptv`, the torque-vectoring gain: 0 when the model has torque vectoring
+off, so Mtv = ptv·(tan δ·vx/L − r) vanishes).  The constraint count (14,
+or 16 with the friction-ellipse rows) is `lam_init.shape[-1]`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +46,7 @@ NX = 8
 NU = 2
 NZ = NX + NU
 N_CON = 14
-MAX_LADDER = 128  # one thread per rung in a 128-thread block
+MAX_LADDER = 32  # one lane per rung in a warp
 
 SCAL_FIELDS = (
     "rho", "reg", "s_max", "inv_ds", "h",  # h = dt / substeps
@@ -52,15 +60,15 @@ SCAL_FIELDS = (
 _S = {name: i for i, name in enumerate(SCAL_FIELDS)}
 NS = len(SCAL_FIELDS)
 
-#: Launches of the one-OCP kernel and of the batch kernel so far; a run
-#: resets them to count its own.
-LAUNCHES = 0
-BATCH_LAUNCHES = 0
+#: Launches of the solve kernel so far; a run resets it to count its own.
+SOLVE_LAUNCHES = 0
+#: OCPs (warps) per block of the solve kernel: they share one copy of the
+#: lookup table.  A launch of B OCPs takes min(WARPS, B), and fewer where
+#: shared memory does not hold that many slices (long horizons in float64).
+WARPS = 4
+MAX_WARPS = 4
 
-_ENTRY = {torch.float32: "lto_ilqr_backward_forward_f32",
-          torch.float64: "lto_ilqr_backward_forward_f64"}
-_ENTRY_BATCH = {torch.float32: "lto_ilqr_backward_forward_batch_f32",
-                torch.float64: "lto_ilqr_backward_forward_batch_f64"}
+_ENTRY = {torch.float32: "lto_ilqr_solve_f32", torch.float64: "lto_ilqr_solve_f64"}
 _lib = None
 
 
@@ -68,7 +76,8 @@ _lib = None
 def scal_tail(model, p, cfg) -> torch.Tensor:
     """`scal` without its first two entries (rho, reg), on the model's device
     and dtype.  Built from the model's buffers on the device (no upload);
-    a solve builds it once and splices rho and reg in per iteration."""
+    `pack` builds it once, and the plain solve splices rho and reg in per
+    iteration."""
     veh, track = model.vehicle, model.track
     ref = track.k_vals
     n = ref.shape[0]
@@ -201,8 +210,9 @@ def _reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alpha
 
 def backward_forward_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
                                zs, us, lams, tables, alphas, scal, *, substeps: int):
-    """Plain PyTorch version of the one-OCP kernel, same signature and
-    semantics (see `_reference`); reg is the `reg` entry of `scal`.
+    """One AL-iLQR iteration of one OCP in plain PyTorch, with the signature
+    and semantics of the JAX package's Pallas kernel `backward_forward`
+    (see `_reference`); reg is the `reg` entry of `scal`.
     Returns (zs (N+1,NZ), us (N,NU), cost (), ok ())."""
     return _reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas,
                       scal, scal[_S["reg"]], substeps=substeps)
@@ -210,127 +220,137 @@ def backward_forward_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
 
 def backward_forward_batch_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams,
                                      tables, alphas, scal, reg_b, *, substeps: int):
-    """Plain PyTorch version of the batch kernel, same signature and
-    semantics (see `_reference`): instance b runs with reg = reg_b[b], and the
+    """One AL-iLQR iteration of B OCPs in plain PyTorch, with the signature
+    and semantics of the JAX package's Pallas kernel `backward_forward_batch`
+    (see `_reference`): instance b runs with reg = reg_b[b], and the
     `reg` entry of `scal` is ignored.  Returns (zs (B,N+1,NZ), us (B,N,NU),
     cost (B,), ok (B,))."""
     return _reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us, lams, tables, alphas,
                       scal, reg_b, substeps=substeps)
 
 
+class Pack(NamedTuple):
+    """The solve's constants on the model's device and dtype: the (4, n)
+    lookup tables, the ladder's step sizes (L,) and the scalar vector
+    without rho and reg (NS - 2,).  Built by `pack` once per closed loop
+    (and by `solver.solve` called alone); nothing caches it beyond that
+    call, so a model with other flags never reads another model's pack."""
+    tables: torch.Tensor
+    alphas: torch.Tensor
+    scal_tail: torch.Tensor
+
+
+def pack(model, p, cfg) -> Pack:
+    """Pack `model`'s tables, `cfg`'s ladder and the scalars of `model`,
+    `p` and `cfg` (about 40 small device ops)."""
+    ref = model.track.k_vals
+    return Pack(tables_matrix(model).contiguous(), ladder(cfg.n_linesearch, ref.dtype, ref.device),
+                scal_tail(model, p, cfg))
+
+
+# --------------------------------------------------------------- plain solve
+def solve_reference(model, p, cfg, z0, us_init, lam_init, pk: Pack):
+    """The solve in plain PyTorch (`solver._solve` over the iteration
+    twins), for one OCP (z0 (NZ,)) or a batch (z0 (B, NZ)).  Returns
+    (us, zs, lam, cost, max_violation) as `solver.SolveResult`."""
+    from lap_time_optimization_tpu_torch.mpc import solver
+
+    return solver._solve(model, p, cfg, z0, us_init, lam_init, pk)
+
+
 # ------------------------------------------------------------------- kernel
 def build():
     """Build the kernel library (`ops/_build.py`, one nvcc call for every
-    source) and bind the iLQR entry points."""
+    source) and bind the solve's entry points."""
     global _lib
     if _lib is None:
         lib = _build.load()
-        _build.bind(lib, _ENTRY.values(), 19, 5)
-        _build.bind(lib, _ENTRY_BATCH.values(), 20, 6)
+        _build.bind(lib, _ENTRY.values(), 11, 9, 3)
+        lib.lto_ilqr_solve_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.lto_ilqr_solve_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
 
-_SHARED = ("tables", "alphas", "scal")
-
-
-def _check_inputs(tensors: dict, N: int, L: int, n_con: int, n_table: int, substeps: int,
-                  batch: int | None = None):
-    """Raise on what the kernels do not take.  With `batch`, every argument
-    but the shared tables, alphas and scal has a leading axis of that size,
-    and `reg_b` has shape (batch,)."""
-    ref = tensors["zs"]
-    if ref.dtype not in _ENTRY:
-        raise TypeError(f"the iLQR kernel takes float32 or float64, not {ref.dtype}")
-    shapes = {
-        "A": (N, NZ, NZ), "B": (N, NZ, NU), "lz": (N, NZ), "lu": (N, NU),
-        "lzz": (N, NZ, NZ), "luu": (N, NU, NU), "luz": (N, NU, NZ),
-        "Vz": (NZ,), "Vzz": (NZ, NZ), "zs": (N + 1, NZ), "us": (N, NU),
-        "lams": (N + 1, n_con), "tables": (4, n_table), "alphas": (L,), "scal": (NS,),
-    }
-    if batch is not None:
-        if batch < 1:
-            raise ValueError(f"unsupported batch size {batch}")
-        shapes = {k: v if k in _SHARED else (batch, *v) for k, v in shapes.items()}
-        shapes["reg_b"] = (batch,)
-    if set(tensors) != set(shapes):
-        raise ValueError(f"arguments {sorted(tensors)}, expected {sorted(shapes)}")
+def _check_solve(cfg, z0, us_init, lam_init, pk: Pack):
+    """Raise on what the solve kernel does not take (before any build);
+    returns the leading instance shape, () or (B,)."""
+    if cfg.hessian_mode != "gauss_newton":
+        raise NotImplementedError(f"hessian_mode={cfg.hessian_mode!r} is not ported yet")
+    if z0.dtype not in _ENTRY:
+        raise TypeError(f"the solve kernel takes float32 or float64, not {z0.dtype}")
+    if z0.dim() not in (1, 2):
+        raise ValueError(f"z0: shape {tuple(z0.shape)}, expected (NZ,) or (B, NZ)")
+    lead = tuple(z0.shape[:-1])
+    N, L, n_con = cfg.horizon, cfg.n_linesearch, lam_init.shape[-1]
+    shapes = {"z0": lead + (NZ,), "us_init": lead + (N, NU), "lam_init": lead + (N + 1, n_con),
+              "tables": (4, pk.tables.shape[-1]), "alphas": (L,), "scal_tail": (NS - 2,)}
+    tensors = {"z0": z0, "us_init": us_init, "lam_init": lam_init, **pk._asdict()}
     for name, t in tensors.items():
-        if t.device != ref.device or t.dtype != ref.dtype:
-            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected {ref.dtype} on {ref.device}")
+        if t.device != z0.device or t.dtype != z0.dtype:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected {z0.dtype} on {z0.device}")
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if n_con not in (N_CON, N_CON + 2):
         raise ValueError(f"unsupported constraint count {n_con}")
-    if not (1 <= L <= MAX_LADDER) or N < 1 or n_table < 2 or substeps < 1:
-        raise ValueError(f"unsupported sizes N={N} L={L} n={n_table} substeps={substeps}")
+    if lead and lead[0] < 1:
+        raise ValueError(f"unsupported batch size {lead[0]}")
+    if (not (1 <= L <= MAX_LADDER) or N < 1 or pk.tables.shape[-1] < 2 or cfg.substeps < 1
+            or cfg.al_iters < 0 or cfg.ilqr_iters < 0):
+        raise ValueError(f"unsupported sizes N={N} L={L} n={pk.tables.shape[-1]} "
+                         f"substeps={cfg.substeps} al_iters={cfg.al_iters} ilqr_iters={cfg.ilqr_iters}")
+    return lead
 
 
-def _launch(inputs: dict, substeps: int, batch: int | None = None):
-    """Check `inputs` (in the C entry points' argument order), allocate the
-    outputs, launch the one-OCP kernel (`batch` None) or the batch kernel on
-    the current stream, and count the launch."""
-    global LAUNCHES, BATCH_LAUNCHES
-    zs, us, lams, tables, alphas = (inputs[k] for k in ("zs", "us", "lams", "tables", "alphas"))
-    N, L, n_con, n_table = us.shape[-2], alphas.shape[0], lams.shape[-1], tables.shape[-1]
-    _check_inputs(inputs, N, L, n_con, n_table, substeps, batch)
-    lead = () if batch is None else (batch,)
-    fn = getattr(build(), (_ENTRY if batch is None else _ENTRY_BATCH)[zs.dtype])
-    new = lambda *shape: torch.empty(lead + shape, dtype=zs.dtype, device=zs.device)
-    outs = (new(N + 1, NZ), new(N, NU), new(), new())
-    ptrs = [t.data_ptr() for t in (*inputs.values(), *outs)]
-    sizes = (N, L, n_con, n_table, substeps) if batch is None else (batch, N, L, n_con, n_table, substeps)
-    with torch.cuda.device(zs.device):
-        stream = torch.cuda.current_stream(zs.device).cuda_stream
-        rc = fn(*ptrs, *sizes, stream)
+def smem_bytes(dtype, warps: int, N: int, L: int, n_con: int, n: int) -> int:
+    """Dynamic shared memory of a block of `warps` OCPs (0: refused)."""
+    return int(build().lto_ilqr_solve_smem_bytes(torch.empty((), dtype=dtype).element_size(),
+                                                 warps, N, L, n_con, n))
+
+
+def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None):
+    """Check, allocate the outputs, launch the solve kernel on the current
+    stream with `warps` OCPs per block (default min(WARPS, B); fewer where
+    shared memory does not hold them), and count the launch."""
+    global SOLVE_LAUNCHES
+    lead = _check_solve(cfg, z0, us_init, lam_init, pk)
+    B = lead[0] if lead else 1
+    N, L, n_con, n = cfg.horizon, cfg.n_linesearch, lam_init.shape[-1], pk.tables.shape[-1]
+    lib = build()
+    want = min(WARPS, B) if warps is None else warps
+    if not 1 <= want <= MAX_WARPS:
+        raise ValueError(f"warps={want}: the kernel takes 1 to {MAX_WARPS} OCPs per block")
+    W = next((w for w in range(want, 0, -1) if smem_bytes(z0.dtype, w, N, L, n_con, n)), 0)
+    if W == 0:
+        raise ValueError(f"the solve kernel does not hold N={N} L={L} n_con={n_con} n={n} in "
+                         f"{z0.dtype} in one block's shared memory")
+    new = lambda *shape: torch.empty(lead + shape, dtype=z0.dtype, device=z0.device)
+    outs = (new(N, NU), new(N + 1, NZ), new(N + 1, n_con), new(), new())
+    ptrs = [t.data_ptr() for t in (z0, us_init, lam_init, *pk, *outs)]
+    with torch.cuda.device(z0.device):
+        stream = torch.cuda.current_stream(z0.device).cuda_stream
+        rc = getattr(lib, _ENTRY[z0.dtype])(
+            *ptrs, B, W, N, L, n_con, n, cfg.substeps, cfg.al_iters, cfg.ilqr_iters,
+            float(cfg.rho_init), float(cfg.rho_scale), float(cfg.reg_init), stream)
     if rc != 0:
-        raise RuntimeError(f"iLQR kernel launch failed: cudaError_t {rc}")
-    if batch is None:
-        LAUNCHES += 1
-    else:
-        BATCH_LAUNCHES += 1
+        raise RuntimeError(f"solve kernel launch failed: cudaError_t {rc}")
+    SOLVE_LAUNCHES += 1
     return outs
 
 
-def backward_forward(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
-                     zs, us, lams, tables, alphas, scal, *, substeps: int):
-    """One fused iLQR iteration.  Inputs: stage Jacobians A (N,NZ,NZ),
-    B (N,NZ,NU); AL quads lz, lu, lzz, luu, luz; terminal Vz, Vzz; reference
-    trajectory zs (N+1,NZ), us (N,NU); multipliers lams (N+1,n_con); tables
-    (4,n); ladder alphas (L,); scal (NS,).  Returns (zs_new, us_new, cost,
-    ok) with ok = 1.0 while the backward pass stayed finite."""
-    if zs.device.type == "cuda":
-        inputs = dict(A=A, B=B, lz=lz, lu=lu, lzz=lzz, luu=luu, luz=luz, Vz=Vz, Vzz=Vzz,
-                      zs=zs, us=us, lams=lams, tables=tables, alphas=alphas, scal=scal)
-        return _launch(inputs, substeps)
-    if zs.device.type == "cpu":
-        return backward_forward_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us,
-                                          lams, tables, alphas, scal, substeps=substeps)
-    raise ValueError(f"no iLQR implementation for device {zs.device}")
-
-
-def backward_forward_batch(A, B, lz, lu, lzz, luu, luz, Vz, Vzz,
-                           zs, us, lams, tables, alphas, scal, reg_b, *, substeps: int):
-    """One fused iLQR iteration for B independent OCPs.  Batch-major
-    inputs: A (B,N,NZ,NZ), B (B,N,NZ,NU), lz (B,N,NZ), lu (B,N,NU),
-    lzz (B,N,NZ,NZ), luu (B,N,NU,NU), luz (B,N,NU,NZ), Vz (B,NZ),
-    Vzz (B,NZ,NZ), zs (B,N+1,NZ), us (B,N,NU), lams (B,N+1,n_con) and the
-    per-instance Levenberg reg_b (B,); shared: tables (4,n), alphas (L,) and
-    scal (NS,), whose `reg` entry is ignored.  Returns (zs_new (B,N+1,NZ),
-    us_new (B,N,NU), cost (B,), ok (B,)).
-
-    The whole table is read by every instance, so unlike the JAX package's
-    batch kernel there is no table window: instance b gives what
-    `backward_forward` gives on it with reg = reg_b[b]."""
-    if zs.device.type == "cuda":
-        inputs = dict(A=A, B=B, lz=lz, lu=lu, lzz=lzz, luu=luu, luz=luz, Vz=Vz, Vzz=Vzz,
-                      zs=zs, us=us, lams=lams, tables=tables, alphas=alphas, scal=scal,
-                      reg_b=reg_b)
-        return _launch(inputs, substeps, batch=zs.shape[0])
-    if zs.device.type == "cpu":
-        return backward_forward_batch_reference(A, B, lz, lu, lzz, luu, luz, Vz, Vzz, zs, us,
-                                                lams, tables, alphas, scal, reg_b,
-                                                substeps=substeps)
-    raise ValueError(f"no iLQR implementation for device {zs.device}")
+def solve(model, p, cfg, z0, us_init, lam_init, pk: Pack):
+    """The AL-iLQR solve from z0 (NZ,) or (B, NZ), warm-started at us_init
+    (..., N, NU) and lam_init (..., N+1, n_con), with the constants `pk`
+    (`pack(model, p, cfg)`).  Returns (us, zs, lam, cost, max_violation),
+    each with z0's leading shape.  CUDA tensors: one launch of the solve
+    kernel; CPU tensors: `solve_reference`."""
+    if z0.device.type == "cuda":
+        if lam_init.shape[-1] != (N_CON + 2 if model.enable_traction_ellipse else N_CON):
+            raise ValueError(f"lam_init has {lam_init.shape[-1]} rows; the model's constraint "
+                             f"set has {N_CON + 2 * model.enable_traction_ellipse}")
+        return _launch(cfg, z0, us_init, lam_init, pk)
+    if z0.device.type == "cpu":
+        return tuple(solve_reference(model, p, cfg, z0, us_init, lam_init, pk))
+    raise ValueError(f"no solve implementation for device {z0.device}")

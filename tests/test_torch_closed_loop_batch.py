@@ -1,8 +1,7 @@
 """The port's batched solve and batched closed loop against the JAX package.
 
 Both sides run on bit-identical parameters (`utils/convert.py`); the port
-runs on the CPU, where `ops.ilqr.backward_forward_batch` takes its plain
-twin.  The oracle is the JAX package's XLA path, where `solve_batch` is
+runs on the CPU, where `ops.ilqr.solve` takes its plain version.  The oracle is the JAX package's XLA path, where `solve_batch` is
 `vmap(solve)`.  Instances start at s = 0, 0.43·s_max and s_max − 3 at
 different speeds, as in tests/test_pallas_ilqr.py::TestBatchedKernel, whose
 tolerances these are: 1e-9 in float64 and 2e-4 in float32 for a solve.
@@ -103,14 +102,14 @@ def _fleet_states():
 @pytest.fixture(scope="module")
 def fleets(base):  # noqa: F811
     """3 control cycles of two float64 loops on both sides, and the port's
-    kernel call counts over its run."""
+    solve kernel launches over its run."""
     jm, jp, tm, tp = _pair(base, "float64")
     x0 = _fleet_states()
     ref = jax_runner.closed_loop_batch(jm, jp, JS.SolverConfig(horizon=10, backend="xla"),
                                        jnp.asarray(x0), 3)
-    launches = ilqr.LAUNCHES, ilqr.BATCH_LAUNCHES
+    launches = ilqr.SOLVE_LAUNCHES
     got = runner.closed_loop_batch(tm, tp, TS.SolverConfig(horizon=10), torch.from_numpy(x0), 3)
-    launches = ilqr.LAUNCHES - launches[0], ilqr.BATCH_LAUNCHES - launches[1]
+    launches = ilqr.SOLVE_LAUNCHES - launches
     return ref, got, tm, tp, launches
 
 
@@ -141,9 +140,9 @@ def test_closed_loop_batch_equals_single(base):  # noqa: F811
 
 def test_closed_loop_batch_gates(fleets):
     """Monotone progress and the applied-state gate (< 1e-2) for every
-    instance; on the CPU the twins run, so neither kernel counter moves."""
+    instance; on the CPU the plain solve runs, so the kernel counter stays."""
     _, got, tm, tp, launches = fleets
     assert np.all(np.diff(got.xs[:, :, 0].numpy(), axis=1) > 0)
     for b in range(2):
         assert runner.applied_violation(tm, tp, runner.SimResult(*(a[b] for a in got))) < 1e-2
-    assert launches == (0, 0)
+    assert launches == 0

@@ -1,14 +1,14 @@
 """Parity of the fused iLQR iteration's plain PyTorch twin with the JAX package.
 
-`ops.ilqr.backward_forward_reference` (the CPU twin of the CUDA kernel in
-`csrc/ilqr.cu`) gets the JAX side's own linearisation and quadratics, and
-is held here against the JAX package's XLA path for the same iteration
+`ops.ilqr.backward_forward_reference` (the iteration of the plain solve
+that `csrc/ilqr.cu`'s solve kernel is held against) gets the JAX side's
+own linearisation and quadratics, and is held here against the JAX package's XLA path for the same iteration
 (`_forward_pass(_backward_pass(...))`), and in test_torch_ilqr_pallas.py
 against its Pallas kernel in interpret mode.  Tolerances are
 those of tests/test_pallas_ilqr.py: 1e-11 in float64 and 1e-5 in float32
 for the trajectories, ten times that (relative) for the cost; the sums run
-in another order.  The CUDA kernel itself runs only on a GPU:
-test_torch_ilqr_cuda.py holds it against the twin there.
+in another order.  The CUDA solve kernel itself runs only on a GPU:
+test_torch_ilqr_cuda.py holds it against the plain solve there.
 """
 
 import dataclasses
@@ -140,22 +140,40 @@ def test_twin_lookup_matches_uinterp(base):
         np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-13, err_msg=fn)
 
 
+def _solve_case(base, lead=()):
+    """The port's float64 model, parameters, config and pack, and a warm
+    start (z0, us_init, lam_init) with leading shape `lead`, on the CPU."""
+    veh, track = base
+    tm = convert.model_from_numpy(_numpy_fields(veh), _numpy_fields(track))
+    tp = TS.OCPParams.reference(torch.float64, lateral_margin=0.05)
+    cfg = TS.SolverConfig(horizon=10, al_iters=1, ilqr_iters=2)
+    x0 = np.tile(jax_runner.X0_REFERENCE, lead + (1,))
+    z0 = torch.from_numpy(np.concatenate([x0, np.zeros(lead + (2,))], axis=-1))
+    us = torch.full(lead + (10, 2), 0.05, dtype=torch.float64)
+    lams = torch.zeros(lead + (11, 14), dtype=torch.float64)
+    return tm, tp, cfg, ilqr.pack(tm, tp, cfg), (z0, us, lams)
+
+
 def test_backward_forward_dispatch_and_checks(base):
-    """CPU tensors take the twin; the kernel wrapper rejects what the kernel
-    does not take before it builds anything."""
-    c = _case(base, "float64")
-    got = ilqr.backward_forward(*c["inputs"], substeps=2)
-    ref = ilqr.backward_forward_reference(*c["inputs"], substeps=2)
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
-    bad = list(c["inputs"])
-    bad[11] = torch.zeros(11, 15, dtype=torch.float64)
-    with pytest.raises(ValueError, match="constraint count|shape"):
-        ilqr._check_inputs(dict(zip(
-            ("A", "B", "lz", "lu", "lzz", "luu", "luz", "Vz", "Vzz", "zs", "us", "lams",
-             "tables", "alphas", "scal"), bad)), 10, 6, 15, bad[12].shape[1], 2)
+    """The solve wrapper on one OCP: CPU tensors take the plain solve (the
+    iteration twins inside); the kernel's checks reject what it does not
+    take before anything is built."""
+    tm, tp, cfg, pk, (z0, us, lams) = _solve_case(base)
+    got = ilqr.solve(tm, tp, cfg, z0, us, lams, pk)
+    ref = ilqr.solve_reference(tm, tp, cfg, z0, us, lams, pk)
+    assert len(got) == 5 and all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert ilqr._check_solve(cfg, z0, us, lams, pk) == ()
+    with pytest.raises(ValueError, match="constraint count"):
+        ilqr._check_solve(cfg, z0, us, torch.zeros(11, 15, dtype=torch.float64), pk)
+    with pytest.raises(ValueError, match="us_init: shape"):
+        ilqr._check_solve(cfg, z0, us[:9].contiguous(), lams, pk)
     with pytest.raises(ValueError, match="contiguous"):
-        ilqr._check_inputs(dict(zip(
-            ("A", "B", "lz", "lu", "lzz", "luu", "luz", "Vz", "Vzz", "zs", "us", "lams",
-             "tables", "alphas", "scal"),
-            [c["inputs"][0].transpose(1, 2), *c["inputs"][1:]])), 10, 6, 14, bad[12].shape[1], 2)
+        ilqr._check_solve(cfg, z0, us.t().contiguous().t(), lams, pk)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ilqr._check_solve(cfg, z0.half(), us, lams, pk)
+    with pytest.raises(ValueError, match="unsupported sizes"):
+        ilqr._check_solve(dataclasses.replace(cfg, n_linesearch=33), z0, us, lams,
+                          pk._replace(alphas=ilqr.ladder(33, torch.float64, "cpu")))
+    with pytest.raises(NotImplementedError, match="hessian_mode"):
+        ilqr._check_solve(dataclasses.replace(cfg, hessian_mode="exact"), z0, us, lams, pk)
+    assert ilqr._lib is None

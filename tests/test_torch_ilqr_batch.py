@@ -1,7 +1,7 @@
 """Parity of the batch iLQR iteration's plain PyTorch twin with the JAX package.
 
-`ops.ilqr.backward_forward_batch_reference` (the CPU twin of the batch CUDA
-kernel in `csrc/ilqr.cu`) gets the JAX side's own linearisation and
+`ops.ilqr.backward_forward_batch_reference` (the batch iteration of the
+plain solve that `csrc/ilqr.cu`'s solve kernel is held against) gets the JAX side's own linearisation and
 quadratics for three instances at s = 0, 0.43·s_max and s_max − 3 (the
 last rolls over the lap seam), at different speeds, each with its own
 Levenberg reg.  It is held against:
@@ -24,8 +24,8 @@ interpret-mode compile of the JAX kernel takes ~15 s on the CPU; the
 float32 and 16-row batch paths are held to the JAX package by
 test_torch_closed_loop_batch.py), at the tolerance of
 tests/test_pallas_ilqr.py: 1e-11 for the trajectories, ten times that
-(relative) for the cost.  The CUDA kernel itself runs only on a GPU:
-test_torch_ilqr_cuda.py holds it against the twin there.
+(relative) for the cost.  The CUDA solve kernel itself runs only on a
+GPU: test_torch_ilqr_cuda.py holds it against the plain solve there.
 """
 
 import functools
@@ -44,7 +44,7 @@ from lap_time_optimization_tpu.ops import pallas_ilqr_batch as PKB
 from lap_time_optimization_tpu_torch.mpc import solver as TS
 from lap_time_optimization_tpu_torch.ops import ilqr
 from lap_time_optimization_tpu_torch.utils import convert
-from test_torch_ilqr import DTYPES, _numpy_fields, base  # noqa: F401  (fixture)
+from test_torch_ilqr import DTYPES, _numpy_fields, _solve_case, base  # noqa: F401  (fixture)
 
 REG_B = (1e-6, 1e-2, 10.0)
 
@@ -190,23 +190,22 @@ def test_last_table_cell_diverges_by_design(base):  # noqa: F811
 
 
 def test_batch_dispatch_and_checks(base):  # noqa: F811
-    """CPU tensors take the twin; the kernel wrapper rejects what the batch
-    kernel does not take before it builds anything."""
-    c = _case(base, "float64")
-    reg_b = torch.from_numpy(c["reg_b"])
-    got = ilqr.backward_forward_batch(*c["inputs"], reg_b, substeps=2)
-    for g, r in zip(got, _twin(c)):
-        assert torch.equal(g, r)
-    names = ("A", "B", "lz", "lu", "lzz", "luu", "luz", "Vz", "Vzz", "zs", "us", "lams",
-             "tables", "alphas", "scal", "reg_b")
-    check = lambda args, batch=3: ilqr._check_inputs(dict(zip(names, args)), 10, 6, 14, 846, 2,
-                                                      batch=batch)
-    check([*c["inputs"], reg_b])
-    with pytest.raises(ValueError, match="reg_b: shape"):
-        check([*c["inputs"], reg_b[:2]])
-    with pytest.raises(ValueError, match="A: shape"):
-        check([*c["inputs"], reg_b], batch=2)
-    with pytest.raises(ValueError, match="contiguous"):
-        check([c["inputs"][0].transpose(2, 3), *c["inputs"][1:], reg_b])
-    with pytest.raises(ValueError, match="arguments"):
-        check(c["inputs"])
+    """The solve wrapper on a batch: CPU tensors take the plain solve
+    (the batch iteration twin inside); the kernel's checks reject what it
+    does not take before anything is built."""
+    tm, tp, cfg, pk, (z0, us, lams) = _solve_case(base, (3,))
+    got = ilqr.solve(tm, tp, cfg, z0, us, lams, pk)
+    ref = ilqr.solve_reference(tm, tp, cfg, z0, us, lams, pk)
+    assert got[3].shape == (3,) and all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert ilqr._check_solve(cfg, z0, us, lams, pk) == (3,)
+    with pytest.raises(ValueError, match="us_init: shape"):
+        ilqr._check_solve(cfg, z0, us[:2].contiguous(), lams, pk)
+    with pytest.raises(ValueError, match="lam_init: shape"):
+        ilqr._check_solve(cfg, z0, us, lams[:, :10].contiguous(), pk)
+    with pytest.raises(ValueError, match="alphas: shape"):
+        ilqr._check_solve(cfg, z0, us, lams, pk._replace(alphas=pk.alphas[:5].contiguous()))
+    with pytest.raises(ValueError, match="z0: shape"):
+        ilqr._check_solve(cfg, z0[None], us, lams, pk)
+    with pytest.raises(ValueError, match="scal_tail: torch.float32"):
+        ilqr._check_solve(cfg, z0, us, lams, pk._replace(scal_tail=pk.scal_tail.float()))
+    assert ilqr._lib is None
