@@ -5,8 +5,8 @@
 
 Drives the port's paths through the entry points a user calls, after
 building the hand-written CUDA kernels from the sources in this checkout
-(one nvcc call) and holding each against its plain PyTorch version on
-the card.  The NMPC paths: the single-stream closed loop (`runner.closed_loop`:
+(one nvcc process per source, in parallel) and holding each against its
+plain PyTorch version on the card.  The NMPC paths: the single-stream closed loop (`runner.closed_loop`:
 MX5 on buckmore, horizon 10, float32, 500 control cycles) and the fleet of
 32 independent closed loops (`runner.closed_loop_batch`: bench.py's batch,
 x0 tiled + 0.01·b, max(10, steps // 5) = 100 cycles, as bench.py:82 sets
@@ -16,8 +16,9 @@ seed 0, at their `Config()` budgets, on the fused route (kernel 3).
 Phases:
 
 1. versions, the card's name and power limit, TF32 off;
-2. build `csrc/ilqr.cu` and `csrc/velocity.cu` (two kernels) with one
-   nvcc call, and print ptxas' registers and spills;
+2. build `csrc/ilqr.cu` and `csrc/velocity.cu` (two kernels), one nvcc
+   process per source started together, and print ptxas' registers and
+   spills;
 3. the solve kernel (the whole AL-iLQR solve, kernels 1-2 of the JAX
    package and the eager code around them) vs the plain solve on the card
    at the NMPC paths' shapes, for 14 and 16 constraint rows, float64 and
@@ -27,10 +28,6 @@ Phases:
    solve kernel timed at B = 1, 32 and 1024 with 1, 2 and 4 OCPs per
    block, and the plain solve; at B=1 also without iLQR iterations and
    with 1 RK4 substep, to split the solve's time;
-   kernel 3 vs its twin on 1024 real candidate geometries (closed,
-   B=1024, N=846; open, the first 300 samples; ragged B=160), tbr18 and
-   MX5, float64 and float32, and f64 `_batch_lap_times(solver="fused")` on
-   the card against the CPU; time per call of each kernel and its twin;
 4. single stream: a 5-cycle float64 closed loop on the card (solve kernel)
    against the same loop on the CPU (plain solve), then a short warm-up and the
    timed closed loop, whose solve launches are counted (one per cycle);
@@ -42,7 +39,21 @@ Phases:
    36.178 s × 1.01 and its kernel launches counted (1);
 7. Bayesian search: the whole search, gated below 36.227 s × 1.01, with
    1 + rounds kernel-3 launches;
-8. the summary lines; the last one is {"ok": true, "device": {...}}.
+8. kernel 3 vs its twin on 1024 real candidate geometries (closed,
+   B=1024, N=846; open, the first 300 samples; ragged B=160) and on hard
+   rows (NaN samples, a row all NaN, constant curvature, the minimum at
+   sample 0 and N-1; N=846 closed and 300 open), tbr18 and MX5, float64 and
+   float32, with 1, 4 and 16 segments per sweep, and f64
+   `_batch_lap_times(solver="fused")` on the card against the CPU; kernel
+   3's dynamic shared memory per block;
+9. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
+   Bayesian round, the nonlinear selection) for 1, 4 and 16 segments,
+   float32 and float64, by its device time in torch.profiler, and the
+   wrapper and the twin per call; then, with --profile, the profiles of
+   both NMPC loops.  Phases 8-9 come after every driven path, so the paths
+   run in a fresh process, and a profiler session, which slows the
+   process's later launches, comes after every timed path;
+10. the summary lines; the last one is {"ok": true, "device": {...}}.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -102,6 +113,11 @@ WIDTH = 0.99
 GATE_NONLINEAR = 36.178 * 1.01
 GATE_BAYES = 36.227 * 1.01
 K3_BATCH = 1024  # Config().nonlinear.n_random, the selection's batch
+# Kernel 3's batches on the searches' paths: the Bayesian init (n_init), a
+# Bayesian round (3 x 64 local + 64 uniform proposals, global_search._propose)
+# and the nonlinear selection; and the segment counts timed.
+K3_TIMED_BATCHES = (128, 256, K3_BATCH)
+K3_SEGMENTS = (1, 4, 16)
 # Kernel 3 vs its twin, max |d| / max(1, |ref|): both round every product
 # and root on its own (the kernel uses no fused multiply-add), so float64
 # agrees to roundoff; float32 is held to 1e-5.  The card's f64
@@ -211,22 +227,64 @@ def lap_report(track, veh, x):
 
 
 def check_velocity(label, veh, s, k, s_max, closed, tol):
-    """Gate kernel 3 against its twin on one input; returns max |d|."""
+    """Gate kernel 3 against its twin on one input, through the wrapper and
+    at every segment count of K3_SEGMENTS; returns the largest max |d|."""
     from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
 
-    got = vb.solve_profile_batch(veh, s, k, s_max, closed)
     ref = vb.solve_profile_batch_reference(veh, s, k, s_max, closed)
-    torch.cuda.synchronize()
-    nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
     fin = torch.isfinite(ref)
-    d = (got - ref).abs()[fin]
-    rel = float((d / ref.abs()[fin].clamp(min=1.0)).max())
-    ab = float(d.max())
-    print(f"{label}: max |d|/max(1,|ref|) = {rel:.3e} (tol {tol:g}); max |d| {ab:.3e}; "
-          f"NaN rows equal {nan_same} ({int((~fin).any(dim=1).sum())} NaN rows)")
-    if not (got.shape == ref.shape and rel <= tol and nan_same):
+    runs = [("wrapper", vb.solve_profile_batch(veh, s, k, s_max, closed))]
+    runs += [(f"P={P}", vb._launch(veh, s, k, s_max, closed, segments=P)) for P in K3_SEGMENTS]
+    torch.cuda.synchronize()
+    worst, ok, readings = 0.0, True, []
+    for name, got in runs:
+        nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
+        d = (got - ref).abs()[fin]
+        rel = float((d / ref.abs()[fin].clamp(min=1.0)).max()) if d.numel() else 0.0
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        ok = ok and got.shape == ref.shape and rel <= tol and nan_same
+        readings.append(f"{name} {rel:.3e}{'' if nan_same else ' NaN rows differ'}")
+    print(f"{label}: max |d|/max(1,|ref|) (tol {tol:g}) " + ", ".join(readings)
+          + f"; max |d| {worst:.3e}; {int((~fin).any(dim=1).sum())} NaN rows")
+    if not ok:
         raise AssertionError(f"{label}: kernel 3 disagrees")
-    return ab
+    return worst
+
+
+def hard_rows(s, k, s_max, N):
+    """8 rows of N samples: two real lines, NaN curvature at three samples,
+    a NaN distance, all NaN, constant curvature (every sample ties), and a
+    line rolled so that its minimum lateral limit is at sample 0 and at N-1."""
+    s, k, s_max = s[:8, :N].clone(), k[:8, :N].clone(), s_max[:8].clone()
+    k[2, [1, N // 2, N - 1]] = float("nan")
+    s[3, N // 3] = float("nan")
+    k[4] = float("nan")
+    k[5] = 0.0123
+    for row, at in ((6, 0), (7, N - 1)):
+        k[row] = torch.roll(k[row], at - int(torch.argmax(k[row])))
+    return s, k, s_max
+
+
+def device_ms(fn, n, name):
+    """Device time per launch of the kernel whose name holds `name`, from
+    torch.profiler over n calls of fn after one warm-up call: the kernel
+    alone, without the host's time per call.  Where the profiler shows no
+    such kernel, CUDA events around the n calls (printed as such)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA and name in a.key]
+    count = sum(a.count for a in hits)
+    if count == 0:
+        print(f"  (the profiler shows no {name}: CUDA events around the calls)")
+        return cuda_ms(fn, n)
+    return sum(a.self_device_time_total for a in hits) / 1e3 / count
 
 
 def load_main_path(device, dtype, tv=False, te=False):
@@ -364,7 +422,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ilqr.build()
     vb.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s (one nvcc call for {len(_build.SOURCES)} sources)")
+    print(f"build: {time.perf_counter() - t0:.2f} s ({len(_build.SOURCES)} sources, one nvcc process each, "
+          f"in parallel)")
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  nvcc: {line.strip()}")
@@ -434,42 +493,6 @@ def main(argv=None) -> int:
     print("solve kernel ablation at B=1 f32: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ablation.items())
           + f"; per iLQR iteration {per_it:.4f} ms; the RK4 chains ~{100 * rk4:.1f}% of the solve")
 
-    # kernel 3 on 1024 real candidate geometries (tridiag fit, as the fused route)
-    n_dec = search_setup("cpu", torch.float64)[0].n_decongested
-    alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
-    worst_k3_abs = 0.0
-    for dtype in (torch.float64, torch.float32):
-        track, tbr18, mx5 = search_setup(device, dtype)
-        alphas = torch.as_tensor(alphas_np, dtype=dtype, device=device)
-        with torch.no_grad():
-            s_b, k_b, len_b = gs._geometry(track, alphas, spline.FIT_METHOD_CLOSED_BATCHED)
-        s_n = s_b[:, :-1]
-        n_samp = k_b.shape[1]
-        for name, veh in (("tbr18", tbr18), ("MX5", mx5)):
-            tag = f"kernel 3 vs twin {str(dtype)[6:]} {name}"
-            tol = K3_TOL[dtype]
-            errs = [check_velocity(f"{tag} closed B={K3_BATCH} N={n_samp}", veh, s_n, k_b, len_b, True, tol),
-                    check_velocity(f"{tag} open B={K3_BATCH} N=300", veh, s_n[:, :300],
-                                   k_b[:, :300].contiguous(), len_b, False, tol),
-                    check_velocity(f"{tag} closed ragged B=160 N={n_samp}", veh, s_n[:160], k_b[:160],
-                                   len_b[:160], True, tol)]
-            if dtype == torch.float32:
-                worst_k3_abs = max(worst_k3_abs, *errs)
-        if dtype == torch.float64:
-            cpu_track, cpu_tbr18, _ = search_setup("cpu", dtype)
-            got = gs._batch_lap_times(track, tbr18, alphas[:16], "fused").cpu()
-            ref = gs._batch_lap_times(cpu_track, cpu_tbr18, alphas[:16].cpu(), "fused")
-            rel = float(((got - ref).abs() / ref.abs()).max())
-            print(f"f64 _batch_lap_times(solver='fused') of 16 candidates, card (kernel) vs CPU (twin): "
-                  f"max |d|/|ref| = {rel:.3e} (tol {LAP_TOL_F64:g}); laps {ref.min():.4f}-{ref.max():.4f} s")
-            if not rel <= LAP_TOL_F64:
-                raise AssertionError("fused lap times on the card disagree with the CPU")
-    k3_ms = cuda_ms(lambda: vb.solve_profile_batch(tbr18, s_n, k_b, len_b, True), 200)
-    k3_twin_ms = cuda_ms(lambda: vb.solve_profile_batch_reference(tbr18, s_n, k_b, len_b, True), 2)
-    k3_bound = bound_ms(4 * (3 * K3_BATCH * n_samp + K3_BATCH), velocity_flops(K3_BATCH, n_samp, False))
-    print(f"kernel 3 per call at B={K3_BATCH} N={n_samp} f32 tbr18 closed: kernel {k3_ms:.4f} ms, "
-          f"twin {k3_twin_ms:.4f} ms, bound {k3_bound[0] * 1e3:.3f} us ({k3_bound[1]})")
-
     # ---------------------------------------------------------------- phase 4
     x0_np = runner.X0_REFERENCE
     m64, p64 = load_main_path(device, torch.float64)
@@ -509,10 +532,6 @@ def main(argv=None) -> int:
         raise AssertionError("track progress is not monotone")
     if not (applied < 1e-2 and predicted < 0.02):
         raise AssertionError("constraint violation above its gate")
-
-    if args.profile:
-        profile_cycles(lambda n: runner.closed_loop(model, p, cfg, x0, n), "closed_loop",
-                       "ilqr_solve_kernel", args.profile, 1e3 * wall / args.steps)
 
     # ---------------------------------------------------------------- phase 5
     batch_steps = max(10, args.steps // 5)  # bench.py:82
@@ -557,9 +576,6 @@ def main(argv=None) -> int:
     if not bapplied < 1e-2:
         raise AssertionError(f"applied violation of an instance below {FLEET_IN_BAND} above its gate")
 
-    if args.profile:
-        profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
-                       "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
 
     # ---------------------------------------------------------------- phase 6
     conf = Config()
@@ -621,6 +637,81 @@ def main(argv=None) -> int:
         raise AssertionError(f"bayesian lap {bo_f:.4f} s above its gate {GATE_BAYES:.3f} s")
 
     # ---------------------------------------------------------------- phase 8
+    # Kernel 3's checks and timings come after every driven path, so that the
+    # paths run in a fresh process: a profiler session leaves the process's
+    # later launches slower (the NMPC loops read 11-20% lower on one card
+    # when kernel 3's timings ran before them).
+    n_dec = search_setup("cpu", torch.float64)[0].n_decongested
+    alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
+    worst_k3_abs = 0.0
+    k3_inputs = {}  # dtype -> (tbr18, s, k, s_max) of the 1024 lines, timed in phase 9
+    for dtype in (torch.float64, torch.float32):
+        track, tbr18, mx5 = search_setup(device, dtype)
+        alphas = torch.as_tensor(alphas_np, dtype=dtype, device=device)
+        with torch.no_grad():
+            s_b, k_b, len_b = gs._geometry(track, alphas, spline.FIT_METHOD_CLOSED_BATCHED)
+        s_n = s_b[:, :-1]
+        n_samp = k_b.shape[1]
+        dt = str(dtype)[6:]
+        k3_inputs[dtype] = (tbr18, s_n, k_b, len_b)
+        print(f"kernel 3 dynamic shared memory per block at N={n_samp} {dt}: "
+              + ", ".join(f"W={W} {vb.smem_bytes(dtype, W, n_samp)} B" for W in range(1, vb.MAX_WARPS + 1)))
+        for name, veh in (("tbr18", tbr18), ("MX5", mx5)):
+            tag = f"kernel 3 vs twin {dt} {name}"
+            tol = K3_TOL[dtype]
+            errs = [check_velocity(f"{tag} closed B={K3_BATCH} N={n_samp}", veh, s_n, k_b, len_b, True, tol),
+                    check_velocity(f"{tag} open B={K3_BATCH} N=300", veh, s_n[:, :300],
+                                   k_b[:, :300].contiguous(), len_b, False, tol),
+                    check_velocity(f"{tag} closed ragged B=160 N={n_samp}", veh, s_n[:160], k_b[:160],
+                                   len_b[:160], True, tol)]
+            for n_hard, closed in ((n_samp, True), (300, False)):
+                errs.append(check_velocity(f"{tag} hard rows {'closed' if closed else 'open'} B=8 N={n_hard}",
+                                           veh, *hard_rows(s_n, k_b, len_b, n_hard), closed, tol))
+            if dtype == torch.float32:
+                worst_k3_abs = max(worst_k3_abs, *errs)
+        if dtype == torch.float64:
+            cpu_track, cpu_tbr18, _ = search_setup("cpu", dtype)
+            got = gs._batch_lap_times(track, tbr18, alphas[:16], "fused").cpu()
+            ref = gs._batch_lap_times(cpu_track, cpu_tbr18, alphas[:16].cpu(), "fused")
+            rel = float(((got - ref).abs() / ref.abs()).max())
+            print(f"f64 _batch_lap_times(solver='fused') of 16 candidates, card (kernel) vs CPU (twin): "
+                  f"max |d|/|ref| = {rel:.3e} (tol {LAP_TOL_F64:g}); laps {ref.min():.4f}-{ref.max():.4f} s")
+            if not rel <= LAP_TOL_F64:
+                raise AssertionError("fused lap times on the card disagree with the CPU")
+
+    # ---------------------------------------------------------------- phase 9
+    kname = "velocity_profile_batch_kernel"
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    k3_dev = {}
+    for dtype, (veh, s_n, k_b, len_b) in k3_inputs.items():
+        n_samp = k_b.shape[1]
+        for B in K3_TIMED_BATCHES:
+            for P in K3_SEGMENTS:
+                k3_dev[dtype, B, P] = device_ms(
+                    lambda: vb._launch(veh, s_n[:B], k_b[:B], len_b[:B], True, segments=P), 50, kname)
+            print(f"kernel 3 device time per launch at B={B} N={n_samp} {str(dtype)[6:]} tbr18 closed "
+                  f"(W={vb.warps_for(B, n_sm)}): "
+                  + ", ".join(f"P={P} {k3_dev[dtype, B, P]:.4f} ms" for P in K3_SEGMENTS)
+                  + f" (the wrapper takes P={vb.SEGMENTS})")
+    veh, s_n, k_b, len_b = k3_inputs[torch.float32]
+    by_w = {W: device_ms(lambda: vb._launch(veh, s_n, k_b, len_b, True, warps=W), 50, kname)
+            for W in range(1, vb.MAX_WARPS + 1)}
+    print(f"kernel 3 device time at B={K3_BATCH} f32 P={vb.SEGMENTS} by candidates per block: "
+          + ", ".join(f"W={W} {t:.4f} ms" for W, t in by_w.items()))
+    k3_ms = device_ms(lambda: vb.solve_profile_batch(veh, s_n, k_b, len_b, True), 50, kname)
+    k3_call_ms = cuda_ms(lambda: vb.solve_profile_batch(veh, s_n, k_b, len_b, True), 200)
+    k3_twin_ms = cuda_ms(lambda: vb.solve_profile_batch_reference(veh, s_n, k_b, len_b, True), 2)
+    k3_bound = bound_ms(4 * (3 * K3_BATCH * n_samp + K3_BATCH), velocity_flops(K3_BATCH, n_samp, False))
+    print(f"kernel 3 at B={K3_BATCH} N={n_samp} f32 tbr18 closed: kernel {k3_ms:.4f} ms (device time), "
+          f"{k3_call_ms:.4f} ms per wrapper call (CUDA events, host included), twin {k3_twin_ms:.4f} ms, "
+          f"bound {k3_bound[0] * 1e3:.3f} us ({k3_bound[1]})")
+    if args.profile:
+        profile_cycles(lambda n: runner.closed_loop(model, p, cfg, x0, n), "closed_loop",
+                       "ilqr_solve_kernel", args.profile, 1e3 * wall / args.steps)
+        profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
+                       "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
+
+    # ---------------------------------------------------------------- phase 10
     print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}")
     print(json.dumps({"kernels": [{
         "name": "ilqr_solve",

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every source under `csrc/` is compiled by ONE `nvcc` call into one shared
-library with a plain C interface, at first use, into `build/torch_kernels/`
-(listed in `.gitignore`), keyed by a hash of the sources and the flags.  The
+Every source under `csrc/` is compiled by its own `nvcc` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, at first use, into `build/torch_kernels/` (listed in
+`.gitignore`), keyed by a hash of the sources and the flags.  The
 wrappers (`ops/ilqr.py`, `ops/velocity_batch.py`) call `load()` and set the
 ctypes signatures of the entry points they use.  Nothing here runs at import
 time, so importing the package needs no CUDA toolkit.
@@ -21,7 +22,7 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in ("ilqr.cu", "ve
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _lib = None
 #: nvcc's output from the build in this process ("" if the library was cached).
@@ -42,8 +43,8 @@ def _nvcc() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """Compile every source (once per hash of sources and flags) and load
-    the library."""
+    """Compile every source (once per hash of sources and flags; one nvcc
+    process per source, in parallel), link them and load the library."""
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
@@ -55,11 +56,22 @@ def load() -> ctypes.CDLL:
     if not os.path.isfile(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCES}:\n{proc.stdout}{proc.stderr}")
-        BUILD_LOG = proc.stdout + proc.stderr
+        objs = [f"{tmp}.{os.path.basename(path)}.o" for path in SOURCES]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, path], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for path, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        link = None
+        if all(proc.returncode == 0 for proc in procs):
+            link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCES}:\n" + "".join(logs))
+        BUILD_LOG = "".join(logs)
         os.replace(tmp, so)
     _lib = ctypes.CDLL(so)
     return _lib

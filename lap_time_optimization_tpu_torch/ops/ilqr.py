@@ -260,8 +260,8 @@ def solve_reference(model, p, cfg, z0, us_init, lam_init, pk: Pack):
 
 # ------------------------------------------------------------------- kernel
 def build():
-    """Build the kernel library (`ops/_build.py`, one nvcc call for every
-    source) and bind the solve's entry points."""
+    """Build the kernel library (`ops/_build.py`, one nvcc process per
+    source, in parallel) and bind the solve's entry points."""
     global _lib
     if _lib is None:
         lib = _build.load()

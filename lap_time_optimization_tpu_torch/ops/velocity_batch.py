@@ -7,12 +7,11 @@ once, for the racing-line searches' batched forward evaluation
 (`optim/global_search._batch_lap_times(solver="fused")`).  Two
 implementations with one signature:
 
-* `csrc/velocity.cu` — CUDA C++ for sm_90a, one thread per candidate (see
-  the note at the top of that file), built with the port's other kernels by
-  one `nvcc` call at first use (`ops/_build.py`) and called through ctypes
-  on PyTorch's current stream.
-* `solve_profile_batch_reference` — the same two-lap, both-sweeps recurrence
-  as a Python loop over 2N steps on (B,) tensors.
+* `csrc/velocity.cu` — CUDA C++ for sm_90a (see the note at the top of that
+  file), built with the port's other kernels at first use (`ops/_build.py`)
+  and called through ctypes on PyTorch's current stream.
+* `solve_profile_batch_reference` — the two-lap, both-sweeps recurrence of
+  the Pallas kernel as a Python loop over 2N steps on (B,) rows.
 
 `solve_profile_batch` dispatches on the tensors' device: CPU tensors go to
 the plain version, CUDA tensors to the kernel, which raises if it cannot be
@@ -20,17 +19,31 @@ built or launched; there is no fallback.  Like the Pallas kernel it is
 forward-only, and it raises if an input requires grad: the searches carry
 gradients through `ops/velocity.solve_profile_parallel`.
 
-The recurrence (pallas_velocity.py:19-28): each sweep runs the UNROLLED
-cyclic recurrence twice (2N steps) instead of rolling each row to its
-argmin.  The update v⁺ = where(v_loc > v_prev, min(v_loc, reach(v_prev)),
+The twin's recurrence (pallas_velocity.py:19-28): each sweep runs the
+UNROLLED cyclic recurrence twice (2N steps) instead of rolling each row to
+its argmin.  The update v⁺ = where(v_loc > v_prev, min(v_loc, reach(v_prev)),
 v_loc) is monotone in v_prev and exact at the global minimum whatever the
 carry, so every value of the second lap is exact.  `ds < 0` marks the seam
 of an open track and restarts the chain.  Acceleration is force·(1/mass),
 as in the Pallas kernel, where `ops/velocity.solve_profile` divides by the
 mass: the two agree to roundoff, not bit for bit.
+
+The kernel's schedule computes the same values with one lap per sweep: one
+warp per candidate (`warps_for` picks W = 1, 2 or 4 candidates per block
+from B so that a search's batch spreads over the SMs); the rows and three
+streams (lateral limit, ds, curvature) in shared memory; both sweeps start
+where the step resets whatever its carry (the first argmin of the lateral
+limit on a closed lap, the seams on an open one); lanes 0-15 run the
+acceleration sweep and 16-31 the braking sweep, each lap cut into P ≤ 16
+segments that start from an upper-bound guess and are repaired in rounds
+until no carry changes (exact for any data, at most P-1 rounds).
+tests/test_torch_velocity_schedule.py models that schedule in PyTorch and
+holds it to the twin bit for bit.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -43,6 +56,12 @@ MAX_ENGINE_KNOTS = 8
 N_PARAMS = 5
 #: Launches of the CUDA kernel so far; a run resets it to count its own.
 LAUNCHES = 0
+#: Candidates (warps) per block: at most MAX_WARPS, chosen by `warps_for`.
+MAX_WARPS = 4
+#: Segments per sweep: the kernel takes 1 to MAX_SEGMENTS (one lane each of
+#: a sweep's 16); the wrapper launches SEGMENTS.
+MAX_SEGMENTS = 16
+SEGMENTS = 16
 
 _ENTRY = {torch.float32: "lto_velocity_profile_batch_f32",
           torch.float64: "lto_velocity_profile_batch_f64"}
@@ -161,14 +180,32 @@ def build():
     global _lib
     if _lib is None:
         lib = _build.load()
-        _build.bind(lib, _ENTRY.values(), 7, 6)
+        _build.bind(lib, _ENTRY.values(), 6, 8)
+        lib.lto_velocity_profile_batch_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.lto_velocity_profile_batch_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
 
-def _launch(vehicle, s, k_abs, s_max, closed: bool):
-    """Check the inputs, allocate the output and the braking-sweep scratch,
-    launch the kernel on the current stream, and count the launch."""
+def warps_for(B: int, n_sm: int) -> int:
+    """Candidates per block for a batch of B on `n_sm` SMs: the most of
+    (4, 2, 1) that still gives every SM a block (B=1024 on 132 SMs: 4, 256
+    blocks in one wave; B=128 or 256: 1)."""
+    return next((w for w in (MAX_WARPS, 2) if -(-B // w) >= n_sm), 1)
+
+
+def smem_bytes(dtype, warps: int, N: int) -> int:
+    """Dynamic shared memory of a block of `warps` candidates (0: refused)."""
+    return int(build().lto_velocity_profile_batch_smem_bytes(
+        torch.empty((), dtype=dtype).element_size(), warps, N))
+
+
+def _launch(vehicle, s, k_abs, s_max, closed: bool, warps: int | None = None,
+            segments: int | None = None):
+    """Check the inputs, allocate the output, launch the kernel on the
+    current stream with `warps` candidates per block (default `warps_for`;
+    fewer where shared memory does not hold them) and `segments` per sweep
+    (default SEGMENTS), and count the launch."""
     global LAUNCHES
     if k_abs.dtype not in _ENTRY:
         raise TypeError(f"the velocity kernel takes float32 or float64, not {k_abs.dtype}")
@@ -182,18 +219,28 @@ def _launch(vehicle, s, k_abs, s_max, closed: bool):
         raise ValueError(f"s_max: shape {tuple(s_max.shape)}, expected () or ({B},)")
     if not (k_abs.is_contiguous() and s.stride(-1) == 1):
         raise ValueError("k_abs must be contiguous, and s contiguous along its rows")
+    P = SEGMENTS if segments is None else segments
+    if not 1 <= P <= MAX_SEGMENTS:
+        raise ValueError(f"segments={P}: the kernel takes 1 to {MAX_SEGMENTS} segments per sweep")
+    if warps is not None and not 1 <= warps <= MAX_WARPS:
+        raise ValueError(f"warps={warps}: the kernel takes 1 to {MAX_WARPS} candidates per block")
+    lib = build()
+    if warps is None:
+        warps = warps_for(B, torch.cuda.get_device_properties(k_abs.device).multi_processor_count)
+    W = next((w for w in range(warps, 0, -1) if smem_bytes(k_abs.dtype, w, N)), 0)
+    if W == 0:
+        raise ValueError(f"the velocity kernel does not hold N={N} samples in {k_abs.dtype} "
+                         f"in one block's shared memory")
     params, engine, pacejka = pack_vehicle(vehicle, k_abs.dtype, k_abs.device)
     out = torch.empty((B, N), dtype=k_abs.dtype, device=k_abs.device)
-    scratch = torch.empty((B, N), dtype=k_abs.dtype, device=k_abs.device)
-    fn = getattr(build(), _ENTRY[k_abs.dtype])
-    ptrs = [t.data_ptr() for t in (s, k_abs, s_max, params, engine, out, scratch)]
+    ptrs = [t.data_ptr() for t in (s, k_abs, s_max, params, engine, out)]
     # s and s_max may be strided views (the searches pass s[:, :-1] and the
     # splines' lengths, t[:, -1])
     ints = (B, N, s.stride(0) if s.dim() == 2 else 0, s_max.stride(0) if s_max.dim() == 1 else 0,
-            int(closed), int(pacejka))
+            int(closed), int(pacejka), W, P)
     with torch.cuda.device(k_abs.device):
         stream = torch.cuda.current_stream(k_abs.device).cuda_stream
-        rc = fn(*ptrs, *ints, stream)
+        rc = getattr(lib, _ENTRY[k_abs.dtype])(*ptrs, *ints, stream)
     if rc != 0:
         raise RuntimeError(f"velocity kernel launch failed: cudaError_t {rc}")
     LAUNCHES += 1
