@@ -12,7 +12,11 @@ MX5 on buckmore, horizon 10, float32, 500 control cycles) and the fleet of
 x0 tiled + 0.01·b, max(10, steps // 5) = 100 cycles, as bench.py:82 sets
 them).  The racing-line searches: `global_search.nonlinear` and
 `global_search.bayesian` for tbr18 on buckmore at width 0.99, float32,
-seed 0, at their `Config()` budgets, on the fused route (kernel 3).
+seed 0, at their `Config()` budgets, on the fused route (kernel 3).  The
+racing-line methods: the racing-line CLI (`cli/race.main`) for tbr18 on
+buckmore at width 0.99, float32, `--solver fused`, each of curvature,
+compromise, laptime, sectors and estimated at its default budget; then the
+MX-5 curvature artifacts it writes driving the NMPC.
 Phases:
 
 1. versions, the card's name and power limit, TF32 off;
@@ -30,30 +34,46 @@ Phases:
    with 1 RK4 substep, to split the solve's time;
 4. single stream: a 5-cycle float64 closed loop on the card (solve kernel)
    against the same loop on the CPU (plain solve), then a short warm-up and the
-   timed closed loop, whose solve launches are counted (one per cycle);
+   timed closed loop, whose solve launches are counted (one per cycle); the
+   applied violation read with both pairings (`runner.applied_violation`),
+   gated on the JAX package's;
 5. fleet: a 3-cycle float64 batched loop (4 instances) on the card against
    the CPU, then the timed 32-instance loop, with its launches counted
-   (one per cycle);
+   (one per cycle) and both readings of the applied violation;
 6. nonlinear search: the 1024-candidate selection timed alone, then the
    whole search, its lap by the scan oracle gated below the published
    36.178 s × 1.01 and its kernel launches counted (1);
 7. Bayesian search: the whole search, gated below 36.227 s × 1.01, with
    1 + rounds kernel-3 launches;
-8. kernel 3 vs its twin on 1024 real candidate geometries (closed,
-   B=1024, N=846; open, the first 300 samples; ragged B=160) and on hard
-   rows (NaN samples, a row all NaN, constant curvature, the minimum at
-   sample 0 and N-1; N=846 closed and 300 open), tbr18 and MX5, float64 and
-   float32, with 1, 4 and 16 segments per sweep, and f64
-   `_batch_lap_times(solver="fused")` on the card against the CPU; kernel
-   3's dynamic shared memory per block;
-9. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
+8. racing line: the nonlinear search of phase 6 once more, bit-equal to it
+   (the card's seeded searches are reproducible), and once with gather's
+   atomic backward for the cost of the deterministic one; the lap-time
+   objective's value and gradient replayed from its CUDA graph against
+   the eager call (bit-equal), both timed; then the five methods through
+   the CLI, each gated on the scan oracle's lap of its
+   line (curvature and compromise below the published lap × 1.01,
+   laptime below the published 40.892 s, sectors below the published
+   curvature lap, estimated below 40 s), with its wall time, L-BFGS
+   iterations and kernel-3 launches (1 per ε sweep, 1 per sector sweep, 1
+   per evaluate); then the MX-5 curvature artifacts of the CLI and 20 NMPC
+   cycles on them (finite states, monotone progress, both violation
+   readings);
+9. kernel 3 vs its twin on 1024 real candidate geometries (closed,
+   B=1024, N=846; open, the first 300 samples; ragged B=160), on the
+   sector windows of phase 8 (open, B = sectors × 8, N = the windows'
+   samples) and on hard rows (NaN samples, a row all NaN, constant
+   curvature, the minimum at sample 0 and N-1; N=846 closed and 300 open),
+   tbr18 and MX5, float64 and float32, with 1, 4 and 16 segments per
+   sweep, and f64 `_batch_lap_times(solver="fused")` on the card against
+   the CPU; kernel 3's dynamic shared memory per block;
+10. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
    Bayesian round, the nonlinear selection) for 1, 4 and 16 segments,
    float32 and float64, by its device time in torch.profiler, and the
    wrapper and the twin per call; then, with --profile, the profiles of
-   both NMPC loops.  Phases 8-9 come after every driven path, so the paths
+   both NMPC loops.  Phases 9-10 come after every driven path, so the paths
    run in a fresh process, and a profiler session, which slows the
    process's later launches, comes after every timed path;
-10. the summary lines; the last one is {"ok": true, "device": {...}}.
+11. the summary lines; the last one is {"ok": true, "device": {...}}.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -64,10 +84,13 @@ beside it, the script exits non-zero as well.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +135,12 @@ FLEET_IN_BAND = 26
 WIDTH = 0.99
 GATE_NONLINEAR = 36.178 * 1.01
 GATE_BAYES = 36.227 * 1.01
+# The racing-line methods' published tbr18 laps on buckmore (reference
+# README, as tests/test_racing_line.py:18-23), the width of the MX-5
+# artifacts the CLI writes for the NMPC, and the NMPC cycles run on them.
+REF_CURVATURE_LAP, REF_COMPROMISE_LAP, REF_LAPTIME_LAP = 39.934, 37.810, 40.892
+MX5_WIDTH = 0.8
+ARTIFACT_STEPS = 20
 K3_BATCH = 1024  # Config().nonlinear.n_random, the selection's batch
 # Kernel 3's batches on the searches' paths: the Bayesian init (n_init), a
 # Bayesian round (3 x 64 local + 64 uniform proposals, global_search._propose)
@@ -224,6 +253,124 @@ def lap_report(track, veh, x):
         track64, veh64 = (copy.deepcopy(m).double() for m in (track, veh))
         oracle64 = float(gs.evaluate_decongested(track64, veh64, x.double())[0])
     return oracle, f"scan-oracle lap {oracle:.4f} s (assoc {assoc:.4f} s, float64 scan {oracle64:.4f} s)"
+
+
+def line_report(track, veh, alphas):
+    """The scan oracle's lap of a full-resolution line (alphas as numpy) in
+    the track's float32 (the gated lap) and in float64."""
+    from lap_time_optimization_tpu_torch.optim import racing_line as rl
+
+    x = torch.as_tensor(alphas, dtype=track.left.dtype, device=track.left.device)
+    lap = float(rl.evaluate(track, veh, x, "scan")[0])
+    track64, veh64 = (copy.deepcopy(m).double() for m in (track, veh))
+    lap64 = float(rl.evaluate(track64, veh64, x.double(), "scan")[0])
+    return lap, f"scan-oracle lap {lap:.4f} s (float64 scan {lap64:.4f} s)"
+
+
+def race_cases(conf):
+    """(method, gate on the scan oracle's lap, kernel-3 launches of a fused
+    run): curvature and compromise below the published lap × 1.01, laptime
+    below the published lap, sectors below the published curvature lap,
+    estimated below 40 s (tests/test_racing_line.py's gates); kernel 3 runs
+    once per ε sweep, once per sector sweep and once per evaluate."""
+    return (("curvature", REF_CURVATURE_LAP * 1.01, 1),
+            ("compromise", REF_COMPROMISE_LAP * 1.01, conf.compromise.n_refine + 2),
+            ("laptime", REF_LAPTIME_LAP, 1),
+            ("sectors", REF_CURVATURE_LAP, 2),
+            ("estimated", 40.0, 1))
+
+
+def run_race(method, vehicle, width, out_dir):
+    """`cli/race.main` for one method on the card (float32, fused), its
+    output kept apart: (result, wall s, launches, L-BFGS iterations of each
+    minimisation, the largest over its instances)."""
+    from lap_time_optimization_tpu_torch.cli import race
+    from lap_time_optimization_tpu_torch.ops import optimize
+
+    iters = []
+    orig = optimize.minimize_bounded
+
+    def counted(*a, **kw):
+        res = orig(*a, **kw)
+        iters.append(int(res.n_iter.max()))
+        return res
+
+    argv = [os.path.join(ROOT, "data", "tracks", "buckmore.json"),
+            os.path.join(ROOT, "data", "vehicles", f"{vehicle}.json"), str(width), f"--{method}",
+            "--device", "cuda", "--dtype", "float32", "--solver", "fused", "--output-dir", out_dir]
+    optimize.minimize_bounded = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = race.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        optimize.minimize_bounded = orig
+    return out, wall, read_counts(), iters
+
+
+def atomic_backward_run(fn):
+    """fn() with the spline gather's backward as torch.gather's own
+    (scatter_add: atomic adds on the card), timed: (result, s)."""
+    from lap_time_optimization_tpu_torch.ops import spline
+
+    orig = spline.knot_adjoint
+    spline.knot_adjoint = lambda g, j, m, masked: orig(g, j, m, False)
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        spline.knot_adjoint = orig
+
+
+def graph_check(track, veh, seed=11):
+    """The lap-time objective's value and gradient ("assoc", K=1, the
+    laptime method's shape) at three seeded lines, eager and replayed from
+    its CUDA graph (`optimize.GraphedValueAndGrad`): (bit-equal, capture s,
+    eager ms, replay ms per call)."""
+    from lap_time_optimization_tpu_torch.ops import optimize
+    from lap_time_optimization_tpu_torch.optim import racing_line as rl
+
+    fun = lambda a: rl.lap_time_of(track, veh, a, "assoc")
+    rng = np.random.default_rng(seed)
+    xs = [torch.as_tensor(rng.uniform(0.3, 0.7, (1, track.size)), dtype=track.left.dtype,
+                          device=track.left.device) for _ in range(3)]
+    graphed = optimize.GraphedValueAndGrad(fun)
+    t0 = time.perf_counter()
+    graphed(xs[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    same = True
+    for x in xs:
+        f_e, g_e = optimize._value_and_grad(fun, x)
+        f_g, g_g = graphed(x)
+        same = same and torch.equal(f_e, f_g) and torch.equal(g_e, g_g)
+    eager_ms = cuda_ms(lambda: optimize._value_and_grad(fun, xs[1]), 3)
+    replay_ms = cuda_ms(lambda: graphed(xs[1]), 10)
+    return same, capture_s, eager_ms, replay_ms
+
+
+def sector_lines(track, n_grid=8, seed=13):
+    """The open sector windows of `racing_line.optimise_sectors` for the
+    track, n_grid seeded lines per window: (s[:, :-1], |κ|, length) of
+    B = sectors × n_grid open splines, as the sector sweep scores them."""
+    from lap_time_optimization_tpu_torch.ops import spline
+    from lap_time_optimization_tpu_torch.optim import racing_line as rl
+
+    corners, _ = rl.detect_track_corners(track)
+    _, _, left_w, right_w, ns_pad = rl.sector_windows(track, corners)
+    lw = left_w.repeat_interleave(n_grid, dim=0)
+    rw = right_w.repeat_interleave(n_grid, dim=0)
+    a = np.random.default_rng(seed).uniform(0.1, 0.9, (lw.shape[0], lw.shape[-1]))
+    with torch.no_grad():
+        sp = spline.fit(lw + torch.as_tensor(a, dtype=lw.dtype, device=lw.device)[:, None, :] * (rw - lw),
+                        closed=False)
+        s = spline.uniform_samples(sp.length, ns_pad)
+        return s[:, :-1], spline.curvature(sp, s[:, :-1]), sp.length
 
 
 def check_velocity(label, veh, s, k, s_max, closed, tol):
@@ -403,7 +550,10 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from lap_time_optimization_tpu_torch.models import load_vehicle
+    from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
     from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.mpc import track as mpc_track
     from lap_time_optimization_tpu_torch.mpc.solver import SolverConfig
     from lap_time_optimization_tpu_torch.ops import _build, ilqr, spline
     from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
@@ -515,11 +665,13 @@ def main(argv=None) -> int:
     launches, stray3 = read_counts()
     xs = sim.xs.cpu().numpy()
     applied = runner.applied_violation(model, p, sim)
+    applied_pairs = runner.applied_violation(model, p, sim, pairing="applied")
     viols = sim.violations.cpu().numpy()
     predicted = float(viols[:PREDICTED_WINDOW].max())
     hz = args.steps / wall
     print(f"closed loop: {args.steps} steps f32 in {wall:.3f} s = {hz:.2f} Hz; "
-          f"progress {xs[-1, 0]:.2f} m; applied violation {applied:.3e}; "
+          f"progress {xs[-1, 0]:.2f} m; applied violation {applied:.3e} (JAX pairing, gated; "
+          f"each input with the state it was applied from: {applied_pairs:.3e}); "
           f"predicted violation {predicted:.3e} over the first {PREDICTED_WINDOW} cycles, "
           f"{float(viols.max()):.3e} over all (step {int(viols.argmax())}); "
           f"solve-kernel launches {launches} ({launches / (args.steps + 2):.1f} per control cycle)")
@@ -557,12 +709,16 @@ def main(argv=None) -> int:
     per = [runner.applied_violation(model, p, runner.SimResult(*(a[b] for a in fleet)))
            for b in range(BATCH)]
     bapplied = max(per[:FLEET_IN_BAND])
+    per_pairs = [runner.applied_violation(model, p, runner.SimResult(*(a[b] for a in fleet)), pairing="applied")
+                 for b in range(BATCH)]
     solves_per_s = BATCH * batch_steps / bwall
     print(f"fleet: {BATCH} loops x {batch_steps} steps f32 in {bwall:.3f} s = "
           f"{solves_per_s:.1f} solves/s ({batch_steps / bwall:.2f} control cycles/s); "
           f"progress {bxs[:, -1, 0].min():.2f}-{bxs[:, -1, 0].max():.2f} m; applied violation, "
           f"worst of instances 0-{FLEET_IN_BAND - 1} {bapplied:.3e}, instances {FLEET_IN_BAND}-{BATCH - 1} "
-          f"{[round(v, 4) for v in per[FLEET_IN_BAND:]]}; predicted violation over all "
+          f"{[round(v, 4) for v in per[FLEET_IN_BAND:]]} (JAX pairing, gated; with the state each input was "
+          f"applied from: 0-{FLEET_IN_BAND - 1} {max(per_pairs[:FLEET_IN_BAND]):.3e}, {FLEET_IN_BAND}-{BATCH - 1} "
+          f"{[round(v, 4) for v in per_pairs[FLEET_IN_BAND:]]}); predicted violation over all "
           f"{float(fleet.violations.max()):.3e}; "
           f"solve-kernel launches {batch_launches} ({batch_launches / (batch_steps + 2):.1f} "
           f"per control cycle)")
@@ -637,6 +793,72 @@ def main(argv=None) -> int:
         raise AssertionError(f"bayesian lap {bo_f:.4f} s above its gate {GATE_BAYES:.3f} s")
 
     # ---------------------------------------------------------------- phase 8
+    # fault 3.1: the same seeded search once more, bit-equal; and once with
+    # gather's atomic backward (the state before the repair) for its cost
+    reset_counts()
+    t0 = time.perf_counter()
+    again_x, again_f = gs.nonlinear(track, tbr18, seed=0, n_random=nl.n_random, n_refine=nl.n_refine,
+                                    max_iter=nl.max_iter, solver="fused")
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    again_counts = read_counts()
+    same = bool(torch.equal(again_x, best_x)) and again_f == best_f
+    atomic_x, atomic_wall = atomic_backward_run(lambda: gs.nonlinear(
+        track, tbr18, seed=0, n_random=nl.n_random, n_refine=nl.n_refine, max_iter=nl.max_iter,
+        solver="fused")[0])
+    print(f"nonlinear again (same seed and budget): {again_wall:.2f} s, search lap {again_f:.4f} s, "
+          f"bit-equal to phase 6: {same}; with gather's atomic backward: {atomic_wall:.2f} s, "
+          f"bit-equal: {bool(torch.equal(atomic_x, best_x))} (the deterministic backward's cost: "
+          f"{nl_wall - atomic_wall:+.2f} s over phase 6, {again_wall - atomic_wall:+.2f} s over this run)")
+    if not same or again_counts != (0, 1):
+        raise AssertionError(f"the seeded nonlinear search is not reproducible on the card "
+                             f"(launches {again_counts})")
+
+    same_graph, capture_s, eager_ms, replay_ms = graph_check(track, tbr18)
+    print(f"lap-time objective value+grad (tbr18, buckmore {WIDTH}, f32, 'assoc', K=1): eager "
+          f"{eager_ms:.2f} ms, CUDA-graph replay {replay_ms:.2f} ms per call (capture with its warm-up "
+          f"{capture_s:.2f} s); bit-equal to eager at 3 lines: {same_graph}")
+    if not same_graph:
+        raise AssertionError("the graphed value and gradient differ from the eager ones")
+
+    race_dir = os.path.join(ROOT, "build", "chip_smoke_race")
+    shutil.rmtree(race_dir, ignore_errors=True)
+    race_k3 = 0
+    for method, gate, k3_expected in race_cases(conf):
+        out, wall, counts, iters = run_race(method, "tbr18", WIDTH, race_dir)
+        lap, laps = line_report(track, tbr18, out["alphas"])
+        race_k3 += counts[1]
+        print(f"race --{method} (tbr18, buckmore {WIDTH}, f32, fused): {wall:.2f} s; L-BFGS iterations "
+              f"{iters}; CLI lap {out['lap_time']:.4f} s (kernel 3), {laps} (gate {gate:.3f}); "
+              f"launches (solve kernel, kernel 3) {counts}")
+        if counts != (0, k3_expected):
+            raise AssertionError(f"--{method} launches {counts}, expected (0, {k3_expected})")
+        if not (np.isfinite(lap) and lap < gate):
+            raise AssertionError(f"--{method} lap {lap:.4f} s above its gate {gate:.3f} s")
+
+    # pipeline 1 → pipeline 2: the CLI's MX-5 curvature artifacts drive the NMPC
+    out, wall, counts, _ = run_race("curvature", "MX5", MX5_WIDTH, race_dir)
+    race_k3 += counts[1]
+    mtrack = mpc_track.load("MX-5", "buckmore", "curvature", base_dir=race_dir)
+    mmodel = BicycleModel(load_vehicle("MX5"), mtrack).to(device, torch.float32)
+    reset_counts()
+    msim = runner.closed_loop(mmodel, p, cfg, x0, ARTIFACT_STEPS)
+    torch.cuda.synchronize()
+    m_counts = read_counts()
+    mxs = msim.xs.cpu().numpy()
+    print(f"NMPC on the CLI's MX-5 curvature artifacts (buckmore {MX5_WIDTH}, {wall:.2f} s to write, lap "
+          f"{out['lap_time']:.3f} s, {float(mtrack.s_max):.1f} m): {ARTIFACT_STEPS} cycles f32, progress "
+          f"{mxs[-1, 0]:.2f} m, applied violation {runner.applied_violation(mmodel, p, msim):.3e} (JAX "
+          f"pairing; with the state each input was applied from "
+          f"{runner.applied_violation(mmodel, p, msim, pairing='applied'):.3e}); launches {m_counts}")
+    if counts != (0, 1) or m_counts != (ARTIFACT_STEPS + 2, 0):
+        raise AssertionError(f"launches {counts} writing the artifacts, {m_counts} in the loop")
+    if mxs.shape != (ARTIFACT_STEPS + 1, 8) or not np.all(np.isfinite(mxs)):
+        raise AssertionError("NMPC states on the CLI's artifacts are not finite")
+    if not np.all(np.diff(mxs[:, 0]) > 0):
+        raise AssertionError("NMPC progress on the CLI's artifacts is not monotone")
+
+    # ---------------------------------------------------------------- phase 9
     # Kernel 3's checks and timings come after every driven path, so that the
     # paths run in a fresh process: a profiler session leaves the process's
     # later launches slower (the NMPC loops read 11-20% lower on one card
@@ -644,7 +866,7 @@ def main(argv=None) -> int:
     n_dec = search_setup("cpu", torch.float64)[0].n_decongested
     alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
     worst_k3_abs = 0.0
-    k3_inputs = {}  # dtype -> (tbr18, s, k, s_max) of the 1024 lines, timed in phase 9
+    k3_inputs = {}  # dtype -> (tbr18, s, k, s_max) of the 1024 lines, timed in phase 10
     for dtype in (torch.float64, torch.float32):
         track, tbr18, mx5 = search_setup(device, dtype)
         alphas = torch.as_tensor(alphas_np, dtype=dtype, device=device)
@@ -664,6 +886,9 @@ def main(argv=None) -> int:
                                    k_b[:, :300].contiguous(), len_b, False, tol),
                     check_velocity(f"{tag} closed ragged B=160 N={n_samp}", veh, s_n[:160], k_b[:160],
                                    len_b[:160], True, tol)]
+            s_w, k_w, len_w = sector_lines(track)
+            errs.append(check_velocity(f"{tag} sector windows open B={k_w.shape[0]} N={k_w.shape[1]}",
+                                       veh, s_w, k_w, len_w, False, tol))
             for n_hard, closed in ((n_samp, True), (300, False)):
                 errs.append(check_velocity(f"{tag} hard rows {'closed' if closed else 'open'} B=8 N={n_hard}",
                                            veh, *hard_rows(s_n, k_b, len_b, n_hard), closed, tol))
@@ -679,7 +904,7 @@ def main(argv=None) -> int:
             if not rel <= LAP_TOL_F64:
                 raise AssertionError("fused lap times on the card disagree with the CPU")
 
-    # ---------------------------------------------------------------- phase 9
+    # ---------------------------------------------------------------- phase 10
     kname = "velocity_profile_batch_kernel"
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     k3_dev = {}
@@ -711,7 +936,7 @@ def main(argv=None) -> int:
         profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
                        "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
 
-    # ---------------------------------------------------------------- phase 10
+    # ---------------------------------------------------------------- phase 11
     print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}")
     print(json.dumps({"kernels": [{
         "name": "ilqr_solve",
@@ -731,7 +956,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/velocity.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_velocity.py:229",
-        "launches": nl_counts[1] + bo_counts[1],
+        "launches": nl_counts[1] + bo_counts[1] + again_counts[1] + race_k3,
         "max_abs_err": worst_k3_abs,
         "ms": k3_ms,
         "plain_ms": k3_twin_ms,

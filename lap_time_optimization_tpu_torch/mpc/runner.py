@@ -199,14 +199,25 @@ def closed_loop_chunked(model, p, cfg, x0: torch.Tensor, steps: int, chunk: int 
     return out
 
 
-def applied_violation(model, p, result: SimResult) -> float:
+def applied_violation(model, p, result: SimResult, pairing: str = "jax") -> float:
     """Max constraint violation of the APPLIED closed-loop states/inputs
     against the TRUE (margin-0) band, over every step (and every instance of
-    a batch).  Pairs xs[1:] with us[1:] and a zero u_prev, as the JAX
-    package does."""
-    xs, us = result.xs[..., 1:, :], result.us[..., 1:, :]
-    z = torch.cat([xs, xs.new_zeros(xs.shape[:-1] + (NU,))], dim=-1)
-    return float(torch.max(solver_mod.constraints(model, p, z, us)))
+    a batch).
+
+    `pairing="jax"` pairs xs[1:] with us[1:] and a zero u_prev, as the JAX
+    package does: each input meets the state it produced.  `"applied"`
+    pairs each input with the state it was applied from, us[1:] with
+    xs[:-1], and with the u_prev the controller saw, us[:-1] (the loop's
+    zero u_prev at the first cycle)."""
+    if pairing == "jax":
+        xs = result.xs[..., 1:, :]
+        u_prev = xs.new_zeros(xs.shape[:-1] + (NU,))
+    elif pairing == "applied":
+        xs, u_prev = result.xs[..., :-1, :], result.us[..., :-1, :]
+    else:
+        raise ValueError(f"pairing {pairing!r} is not 'jax' or 'applied'")
+    z = torch.cat([xs, u_prev], dim=-1)
+    return float(torch.max(solver_mod.constraints(model, p, z, result.us[..., 1:, :])))
 
 
 def tire_logs(model, xs: torch.Tensor):

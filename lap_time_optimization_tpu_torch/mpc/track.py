@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from lap_time_optimization_tpu_torch.ops import spline
-from lap_time_optimization_tpu_torch.utils import io
+from lap_time_optimization_tpu_torch.utils import io, native
 
 LOOKUP_FIELDS = ("k_vals", "nl_vals", "nr_vals", "vref_vals", "s_max")
 GEOMETRY_FIELDS = ("s_grid", "path_xy", "path_tangent", "left_xy", "right_xy")
@@ -101,13 +101,6 @@ class MPCTrack(nn.Module):
         interp = lambda row: spline.interp(sw, self.s_grid, row)
         return (torch.stack([interp(self.path_xy[0]), interp(self.path_xy[1])]),
                 torch.stack([interp(self.path_tangent[0]), interp(self.path_tangent[1])]))
-
-
-def nearest_distances(path_xy: np.ndarray, boundary_xy: np.ndarray) -> np.ndarray:
-    """min distance from each path point (2, n) to the boundary samples (2, m)."""
-    dx = path_xy[0][:, None] - boundary_xy[0][None, :]
-    dy = path_xy[1][:, None] - boundary_xy[1][None, :]
-    return np.sqrt(np.min(dx * dx + dy * dy, axis=1))
 
 
 def _resample_closed(points: np.ndarray, n_samples: int):
@@ -196,8 +189,8 @@ def build(path_pts, left_pts, right_pts, velocities, n_samples: int) -> MPCTrack
     _, right_xy, _, _, _ = _resample_closed(np.asarray(right_pts), n_samples)
 
     path_np = path_xy.numpy()
-    nl = torch.as_tensor(nearest_distances(path_np, left_xy.numpy()))
-    nr = torch.as_tensor(nearest_distances(path_np, right_xy.numpy()))
+    nl = torch.as_tensor(native.nearest_distances(path_np, left_xy.numpy()))
+    nr = torch.as_tensor(native.nearest_distances(path_np, right_xy.numpy()))
 
     # vref(s): the velocities artifact is sampled per metre along the racing
     # line (ns-1 entries over [0, s_max)); resample onto the arc grid

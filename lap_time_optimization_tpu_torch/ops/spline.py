@@ -14,7 +14,10 @@ Closed curves have two moment solves that agree to roundoff in float64
 (tests/test_torch_spline_track.py): a dense `torch.linalg.solve` of the
 cyclic system and an O(n) cyclic Thomas + Sherman–Morrison recurrence.  The
 two defaults below keep the JAX package's per-regime choice.  Open curves
-use the dense not-a-knot system.
+use the dense not-a-knot system.  The dense solves are `linalg.solve_ex`
+without its error check, which on a CUDA device would sync with the host
+(and so could not be captured in a CUDA graph); the values are
+`linalg.solve`'s.
 
 An interpolating periodic C² cubic spline with knots at the data sites is
 unique, so the closed fit reproduces FITPACK's `per=1` interpolant
@@ -214,16 +217,61 @@ def fit(points: torch.Tensor, closed: bool = True, method: str | None = None) ->
             M = _cyclic_moments_tridiag(p, h)
         elif method == "dense":
             A, rhs = _cyclic_moment_system(p, h)
-            M = torch.linalg.solve(A, rhs.transpose(-1, -2)).transpose(-1, -2)
+            M = torch.linalg.solve_ex(A, rhs.transpose(-1, -2))[0].transpose(-1, -2)
         else:
             raise ValueError(f"unknown closed-spline method {method!r}")
         ip1 = (torch.arange(n, device=points.device) + 1) % n
         return Spline2D(tk=t, pj=p, pj1=p[..., ip1], Mj=M, Mj1=M[..., ip1], h=h,
                         controls=points, length=t[..., -1], closed=True)
     A, rhs = _notaknot_moment_system(points, h)
-    M = torch.linalg.solve(A, rhs.transpose(-1, -2)).transpose(-1, -2)
+    M = torch.linalg.solve_ex(A, rhs.transpose(-1, -2))[0].transpose(-1, -2)
     return Spline2D(tk=t, pj=points[..., :-1], pj1=points[..., 1:], Mj=M[..., :-1],
                     Mj1=M[..., 1:], h=h, controls=points, length=t[..., -1], closed=False)
+
+
+def knot_adjoint(g: torch.Tensor, j: torch.Tensor, m: int, masked: bool) -> torch.Tensor:
+    """Adjoint of gathering (*lead, C, m) interval data at the sample
+    intervals j (*lead, M): each interval's sum of the sample adjoints g
+    (*lead, C, M) that hit it.  `masked=False`: `scatter_add`, gather's own
+    backward.  `masked=True`: one masked reduction over the sample axis,
+    which sums in the same order on every run (a NaN or inf adjoint stays at
+    its own interval, as with scatter_add)."""
+    if not masked:
+        idx = j.unsqueeze(-2).expand(g.shape)
+        return torch.zeros(g.shape[:-1] + (m,), dtype=g.dtype, device=g.device).scatter_add_(-1, idx, g)
+    hit = (j.unsqueeze(-1) == torch.arange(m, device=j.device)).unsqueeze(-3)  # (*lead, 1, M, m)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    return torch.where(hit, g.unsqueeze(-1), zero).sum(-2)
+
+
+class _KnotGather(torch.autograd.Function):
+    """`torch.gather` of per-interval data (*lead, m) or (*lead, C, m) at the
+    sample intervals j (*lead, M), with a deterministic backward.
+
+    Many samples share one interval, so gather's own backward is a
+    `scatter_add`, whose atomic adds on a CUDA device sum in a different
+    order from run to run (the card's seeded searches were not
+    reproducible).  On a CUDA device the adjoints of all sources are
+    reduced by `knot_adjoint(masked=True)` in one pass; on the CPU, where
+    scatter_add is sequential, by scatter_add."""
+
+    @staticmethod
+    def forward(ctx, j, *srcs):
+        ctx.save_for_backward(j)
+        ctx.shapes, ctx.dtype = [s.shape for s in srcs], srcs[0].dtype
+        return tuple(torch.gather(s, -1, j if s.dim() == j.dim() else
+                                  j.unsqueeze(-2).expand(s.shape[:-1] + j.shape[-1:]))
+                     for s in srcs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (j,) = ctx.saved_tensors
+        chans = [1 if len(shape) == j.dim() else shape[-2] for shape in ctx.shapes]
+        g = torch.cat([torch.zeros(j.shape[:-1] + (c, j.shape[-1]), dtype=ctx.dtype, device=j.device)
+                       if gi is None else gi.reshape(j.shape[:-1] + (c, j.shape[-1]))
+                       for gi, c in zip(grads, chans)], dim=-2)
+        adj = knot_adjoint(g, j, ctx.shapes[0][-1], masked=j.is_cuda).split(chans, dim=-2)
+        return (None, *(a.reshape(shape) for a, shape in zip(adj, ctx.shapes)))
 
 
 def _batched_eval(sp: Spline2D, u: torch.Tensor, der: int) -> torch.Tensor:
@@ -233,12 +281,10 @@ def _batched_eval(sp: Spline2D, u: torch.Tensor, der: int) -> torch.Tensor:
     m = sp.h.shape[-1]
     j = torch.searchsorted(sp.tk.contiguous(), u.contiguous(), right=True)
     j = torch.clamp(j - 1, 0, m - 1)
-    ta = torch.gather(sp.tk, -1, j + 1) - u  # distance to right knot
-    tb = u - torch.gather(sp.tk, -1, j)  # distance from left knot
-    h = torch.gather(sp.h, -1, j)
-    j2 = j.unsqueeze(-2).expand(j.shape[:-1] + (2, j.shape[-1]))
-    Mj, Mj1 = torch.gather(sp.Mj, -1, j2), torch.gather(sp.Mj1, -1, j2)
-    pj, pj1 = torch.gather(sp.pj, -1, j2), torch.gather(sp.pj1, -1, j2)
+    tk_r, tk_l, h, Mj, Mj1, pj, pj1 = _KnotGather.apply(
+        j, sp.tk[..., 1:], sp.tk[..., :-1], sp.h, sp.Mj, sp.Mj1, sp.pj, sp.pj1)
+    ta = tk_r - u  # distance to right knot
+    tb = u - tk_l  # distance from left knot
     ta, tb, h = ta.unsqueeze(-2), tb.unsqueeze(-2), h.unsqueeze(-2)
     inv_h = 1.0 / h
     if der == 0:
@@ -289,6 +335,14 @@ def gamma2(sp: Spline2D, u: torch.Tensor) -> torch.Tensor:
     src/path.py:63-77); (*lead,) for a batched spline, else a scalar."""
     k = curvature(sp, u, signed=True)
     return torch.sum(k * k, dim=-1) if sp.batched else torch.sum(k * k)
+
+
+def uniform_samples(length: torch.Tensor, ns: int) -> torch.Tensor:
+    """`jnp.linspace(0, length, ns)` over (*lead,) lengths → (*lead, ns),
+    differentiable in the length: the fixed-count sample grid over the
+    current path length (reference src/trajectory.py:45)."""
+    t = torch.arange(ns - 1, dtype=length.dtype, device=length.device) / (ns - 1)
+    return torch.cat([length[..., None] * t, length[..., None]], dim=-1)
 
 
 def arc_length_table(sp: Spline2D, n_samples: int = 1000):

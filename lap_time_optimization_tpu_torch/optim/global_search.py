@@ -45,18 +45,11 @@ SOLVERS = ("scan", "assoc", "fused")
 
 
 # --------------------------------------------------------------------- pipeline
-def _samples(length: torch.Tensor, ns: int) -> torch.Tensor:
-    """`jnp.linspace(0, length, ns)` over (*lead,) lengths → (*lead, ns),
-    differentiable in the length."""
-    t = torch.arange(ns - 1, dtype=length.dtype, device=length.device) / (ns - 1)
-    return torch.cat([length[..., None] * t, length[..., None]], dim=-1)
-
-
 def _geometry(track: Track, alphas: torch.Tensor, method: str | None = None):
     """(s (*lead, ns), |κ| at s[..., :-1], lap length) of the spline through
     the decongested control points of alphas (*lead, n_dec)."""
     sp = spline.fit(track.control_points_decongested(alphas), track.closed, method)
-    s = _samples(sp.length, track.ns)
+    s = spline.uniform_samples(sp.length, track.ns)
     return s, spline.curvature(sp, s[..., :-1], signed=False), sp.length
 
 
@@ -162,12 +155,15 @@ def nonlinear(track: Track, vehicle, seed: int = 0, n_random: int = 1024, n_refi
 def _smooth_chol(d: int, dtype, device, corr_len: float = 2.0) -> torch.Tensor:
     """Cholesky of an RBF covariance over (cyclic) control indices: racing
     lines are smooth, so correlated perturbations explore the useful
-    subspace far better than white noise."""
+    subspace far better than white noise.  NaN where the cyclic kernel is
+    not positive definite (few control points), as JAX's Cholesky: the
+    smooth proposals are then NaN and score no lap."""
     idx = torch.arange(d, device=device)
     dist = torch.abs(idx[:, None] - idx[None, :]).to(dtype)
     dist = torch.minimum(dist, d - dist)  # cyclic
     K = torch.exp(-0.5 * (dist / corr_len) ** 2) + 1e-6 * torch.eye(d, dtype=dtype, device=device)
-    return torch.linalg.cholesky(K)
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where(info == 0, L, torch.full_like(L, torch.nan))
 
 
 def _propose(gen: torch.Generator, incumbent: torch.Tensor, n_local: int, n_uniform: int):

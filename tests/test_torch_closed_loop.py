@@ -118,6 +118,28 @@ def test_closed_loop_gates_and_schema(loops):
     assert np.all(np.asarray(data["alpha"])[0] == 0.0)
 
 
+def test_applied_violation_pairings(base, loops):
+    """Both readings of the applied violation on the port's 10-cycle f64
+    trajectory of the bench config: `pairing="jax"` equals the JAX
+    package's `applied_violation` on the same trajectory (rtol 1e-12), and
+    `"applied"` (each input with the state it was applied from and the
+    u_prev the controller saw) is computed from those pairs directly."""
+    _, got, tm, tp, _ = loops
+    jm, jp, _, _ = _pair(base, jnp.float64)
+    same = jax_runner.SimResult(*(jnp.asarray(a.numpy()) for a in got))
+    ref = jax_runner.applied_violation(jm, jp, same)
+    jax_reading = runner.applied_violation(tm, tp, got, pairing="jax")
+    assert jax_reading == runner.applied_violation(tm, tp, got)
+    np.testing.assert_allclose(jax_reading, ref, rtol=1e-12, atol=1e-15)
+    applied = runner.applied_violation(tm, tp, got, pairing="applied")
+    z = torch.cat([got.xs[:-1], got.us[:-1]], dim=-1)
+    direct = max(float(TS.constraints(tm, tp, z[t], got.us[t + 1]).max()) for t in range(STEPS))
+    assert applied == pytest.approx(direct, rel=1e-12, abs=1e-15)
+    assert np.isfinite(applied) and applied < 1e-2
+    with pytest.raises(ValueError, match="pairing"):
+        runner.applied_violation(tm, tp, got, pairing="other")
+
+
 def test_cli_writes_sim_results(tmp_path):
     out = tmp_path / "sim_results.json"
     result = cli_mpc.main(["--curvature", "--device", "cpu", "--steps", "3",

@@ -117,6 +117,20 @@ def test_nan_candidates_lose_every_argmin(alphas, port):
     assert not torch.isnan(incumbent).any()
 
 
+@pytest.mark.parametrize("d", [8, 44])
+def test_smooth_chol_matches_jax(d):
+    """The smooth proposals' Cholesky against JAX's: equal at buckmore's
+    d=44; at d=8 (a 24-cone track's decongested line; 4-18 and 20 alike)
+    the cyclic kernel is not positive definite and both carry NaN, so every
+    smooth proposal is NaN and scores no lap, and the Bayesian search runs
+    on (the port raised before)."""
+    got = global_search._smooth_chol(d, torch.float64, "cpu").numpy()
+    ref = np.asarray(jax_gs._smooth_chol(d, jnp.float64))
+    assert np.isnan(got).any() == np.isnan(ref).any() == (d == 8)
+    if d != 8:  # entries O(1); the 1e-6 jitter leaves K ill-conditioned: 4.7e-12 measured
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-10)
+
+
 def test_nonlinear_small_budget(port):
     best_x, best_f = global_search.nonlinear(*port, seed=0, n_random=32, n_refine=2, max_iter=4,
                                              solver="fused")

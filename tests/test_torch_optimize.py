@@ -62,7 +62,7 @@ def test_bounded_stepper_matches_jax(x0):
     n_iter after 6 steps."""
     start = np.clip(0.5 + 0.2 * x0, 0.01, 0.98)
     init, run, fin = optimize.bounded_stepper(torch_fun, lo=0.0, hi=0.99, max_iter=40,
-                                              dtype=torch.float64)
+                                              dtype=torch.float64, linesearch="ladder")
     got = fin(run(init(torch.as_tensor(start)), 6))
     j_init, j_run, j_fin = jax_optimize.bounded_stepper(jax_fun, lo=0.0, hi=0.99, max_iter=40,
                                                         dtype=jnp.float64, linesearch="ladder")
@@ -71,8 +71,8 @@ def test_bounded_stepper_matches_jax(x0):
         np.testing.assert_allclose(got.x[b].numpy(), np.asarray(ref.x), rtol=1e-10)
         np.testing.assert_allclose(float(got.fun[b]), float(ref.fun), rtol=1e-12)
         assert int(got.n_iter[b]) == int(ref.n_iter)
-    with pytest.raises(NotImplementedError):
-        optimize.bounded_stepper(torch_fun, linesearch="zoom")
+    with pytest.raises(ValueError, match="linesearch"):
+        optimize.bounded_stepper(torch_fun, linesearch="backtracking")
 
 
 def test_batch_equals_instances_with_early_stop(x0):
