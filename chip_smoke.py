@@ -16,7 +16,10 @@ seed 0, at their `Config()` budgets, on the fused route (kernel 3).  The
 racing-line methods: the racing-line CLI (`cli/race.main`) for tbr18 on
 buckmore at width 0.99, float32, `--solver fused`, each of curvature,
 compromise, laptime, sectors and estimated at its default budget; then the
-MX-5 curvature artifacts it writes driving the NMPC.
+MX-5 curvature artifacts it writes driving the NMPC.  Then the paths of
+`SolverConfig.accurate()`, exact Hessians and `parallel/` on a 1-rank
+NCCL process group on the one card the script uses (the multi-rank
+semantics are held on gloo ranks by the CPU tests).
 Phases:
 
 1. versions, the card's name and power limit, TF32 off;
@@ -58,7 +61,22 @@ Phases:
    per evaluate); then the MX-5 curvature artifacts of the CLI and 20 NMPC
    cycles on them (finite states, monotone progress, both violation
    readings);
-9. kernel 3 vs its twin on 1024 real candidate geometries (closed,
+9. `accurate()`, exact mode and `parallel/` on a 1×1 NCCL mesh: the solve
+   kernel at `accurate()` vs the plain solve (f64 and f32, B = 1 and 32,
+   phase 3's tolerances), its time per solve at B=1, and a 25-cycle f32
+   closed loop at `accurate()` (launches counted; both violation gates); a
+   horizon-10 exact-Hessian f64 solve on the card against the CPU (1e-9;
+   no kernel launch); `runner.closed_loop_fleet` of bench.py's 32 loops for
+   20 cycles, bit-equal to `closed_loop_batch` (1 launch per cycle,
+   instances 0-25 gated); `sp_velocity.solve_profile_sp` against
+   `ops.velocity.solve_profile` (f64, tbr18 and MX5, closed and open, rtol
+   1e-9); `mesh.search_step_dp_sp` against `search_step(solver="scan")`
+   (f64, B=16); `mesh.evolutionary_search(solver="fused")` for tbr18 on
+   buckmore 0.99, f32, batch 1024, 20 rounds (elitism: a non-increasing
+   history, lower at the end; 1 kernel-3 launch per round);
+   `scaling.measure` on the 1-rank world; and `nonlinear(mesh=1×1)`,
+   bit-equal to phase 6;
+10. kernel 3 vs its twin on 1024 real candidate geometries (closed,
    B=1024, N=846; open, the first 300 samples; ragged B=160), on the
    sector windows of phase 8 (open, B = sectors × 8, N = the windows'
    samples) and on hard rows (NaN samples, a row all NaN, constant
@@ -66,14 +84,14 @@ Phases:
    tbr18 and MX5, float64 and float32, with 1, 4 and 16 segments per
    sweep, and f64 `_batch_lap_times(solver="fused")` on the card against
    the CPU; kernel 3's dynamic shared memory per block;
-10. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
+11. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
    Bayesian round, the nonlinear selection) for 1, 4 and 16 segments,
    float32 and float64, by its device time in torch.profiler, and the
    wrapper and the twin per call; then, with --profile, the profiles of
-   both NMPC loops.  Phases 9-10 come after every driven path, so the paths
+   both NMPC loops.  Phases 10-11 come after every driven path, so the paths
    run in a fresh process, and a profiler session, which slows the
    process's later launches, comes after every timed path;
-11. the summary lines; the last one is {"ok": true, "device": {...}}.
+12. the summary lines; the last one is {"ok": true, "device": {...}}.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -162,6 +180,19 @@ LAP_TOL_F64 = 1e-8
 # (NVIDIA's H100 SXM data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# Phase 9: the closed loop at `accurate()` (the window tests/test_mpc.py runs
+# the JAX package's at), the fleet's cycles on the mesh, the evolutionary
+# search's budget, and the tolerances of the exact solve (card vs CPU, f64)
+# and of the sequence-parallel profile (24 sweeps' fixpoint, as
+# tests/test_parallel.py holds JAX's).
+ACCURATE_STEPS = 25
+MESH_FLEET_STEPS = 20
+EVO_BATCH, EVO_ROUNDS = 1024, 20
+EXACT_TOL, SP_TOL = 1e-9, 1e-9
+# accurate() in float32 at B=32: the AL-free cost of the kernel's solve
+# against the plain solve's, max |d| / max(1, |ref|) (read 7.7e-4 on an
+# H100; the bistable instances' inputs are the phase's own, see there).
+ACCURATE_F32_COST_TOL = 1e-2
 
 
 def nvidia_smi() -> str:
@@ -537,6 +568,215 @@ def check_solve(label, got, ref, dtype):
     return max(a for *_, a in errs)
 
 
+def rel_err(got, ref) -> float:
+    """max |d| / max(1, |ref|) over the finite entries of ref."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+
+
+def phase_parallel(device, x0b_np, nl, best_x, best_f):
+    """Phase 9: `accurate()` on the solve kernel, exact Hessians on the card,
+    and `parallel/` on a 1×1 NCCL mesh (see the module docstring).  Returns
+    (solve-kernel launches, kernel-3 launches) of its driven paths and a
+    dict of its readings."""
+    import torch.distributed as dist
+
+    from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.mpc import solver as S
+    from lap_time_optimization_tpu_torch.ops import ilqr, spline, velocity
+    from lap_time_optimization_tpu_torch.optim import global_search as gs
+    from lap_time_optimization_tpu_torch.parallel import distributed, scaling, sp_velocity
+    from lap_time_optimization_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    distributed.initialize(distributed.local_init_method(), world_size=1, rank=0, device="cuda")
+    mesh = pmesh.make_mesh(1, sp=1, device="cuda")
+    print(f"process group: {dist.get_backend()}, world {dist.get_world_size()}; {mesh}")
+    launches, k3_launches, out = 0, 0, {}
+
+    # accurate() on the solve kernel, against the plain solve on the card:
+    # f64 at B = 1 and 32 and f32 at B=1 at phase 3's tolerances.  In f32 at
+    # B=32 the solve is bistable on some instances (ρ reaches 1250 over 32
+    # iterations): two plain f32 solves, on the CPU and on the card, land up
+    # to 1.35 apart in u on one instance, so no per-instance tolerance holds
+    # for two f32 implementations there.  That case is held to each instance
+    # of the launch being its own B=1 launch bit for bit, to finite outputs
+    # and to the AL-free costs (ACCURATE_F32_COST_TOL), and its per-instance
+    # distances are printed beside the plain f32 solve's own from f64.
+    acc = S.SolverConfig.accurate()
+    x_mid = np.array([430.0, *runner.X0_REFERENCE[1:]])
+    m64, p64 = load_main_path(device, torch.float64)
+    for dtype in (torch.float64, torch.float32):
+        model, p = load_main_path(device, dtype)
+        pk = ilqr.pack(model, p, acc)
+        for name, x0, seed in (("B=1 s0=430", x_mid, 1), (f"B={BATCH}", fleet_states(model.track, BATCH), 3)):
+            sargs = solve_inputs(model, acc, x0, 2.0, seed)
+            got = ilqr.solve(model, p, acc, *sargs, pk)
+            ref = ilqr.solve_reference(model, p, acc, *sargs, pk)
+            label = f"accurate() solve kernel vs plain {str(dtype)[6:]} {name}"
+            if not (dtype == torch.float32 and x0.ndim == 2):
+                check_solve(label, got, ref, dtype)
+                continue
+            ref64 = ilqr.solve_reference(m64, p64, acc, *(a.double() for a in sargs), ilqr.pack(m64, p64, acc))
+            du = lambda a, b: (a[0].double() - b[0].double()).abs().amax(dim=(1, 2))
+            same = all(torch.equal(g[b], o) for b in range(BATCH)
+                       for g, o in zip(got, ilqr.solve(model, p, acc, *(a[b] for a in sargs), pk)))
+            cost = float(((got[3] - ref[3]).abs() / ref[3].abs().clamp(min=1.0)).max())
+            d_kp, d_p64 = du(got, ref), du(ref, ref64)
+            print(f"{label}: per instance max |d us| kernel vs plain f32 {float(d_kp.max()):.3e} "
+                  f"({int((d_kp > SOLVE_F32_TOL).sum())} of {BATCH} above {SOLVE_F32_TOL:g}), plain f32 vs plain "
+                  f"f64 {float(d_p64.max()):.3e} ({int((d_p64 > SOLVE_F32_TOL).sum())} above); AL-free cost max "
+                  f"|d|/max(1,|ref|) {cost:.2e} (tol {ACCURATE_F32_COST_TOL:g}); each instance bit-equal to its "
+                  f"B=1 launch: {same}")
+            if not (same and cost <= ACCURATE_F32_COST_TOL and all(bool(torch.isfinite(g).all()) for g in got)):
+                raise AssertionError(f"{label}: the solve kernel fails its float32 gates")
+    sargs = solve_inputs(model, acc, runner.X0_REFERENCE, 0.0, 3)
+    out["accurate_ms"] = cuda_ms(lambda: ilqr.solve(model, p, acc, *sargs, pk), 20)
+    print(f"solve kernel per call at accurate() (N=10 L=8 substeps=4 4x8 iterations) B=1 f32: "
+          f"{out['accurate_ms']:.4f} ms; smem per block "
+          f"{[ilqr.smem_bytes(torch.float32, W, 10, 8, 14, 846) for W in (1, 2, 4)]} B")
+    x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    sim = runner.closed_loop(model, p, acc, x0, ACCURATE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    xs = sim.xs.cpu().numpy()
+    predicted = float(sim.violations.max())
+    applied = runner.applied_violation(model, p, sim)
+    print(f"closed loop at accurate(): {ACCURATE_STEPS} steps f32 in {wall:.3f} s = {ACCURATE_STEPS / wall:.2f} Hz; "
+          f"progress {xs[-1, 0]:.2f} m; applied violation {applied:.3e} (JAX pairing, gated < 1e-2), "
+          f"predicted {predicted:.3e} (gated < 0.02); launches (solve kernel, kernel 3) {counts}")
+    if counts != (ACCURATE_STEPS + 2, 0):
+        raise AssertionError(f"accurate() loop launches {counts}, expected ({ACCURATE_STEPS + 2}, 0)")
+    if not (np.all(np.isfinite(xs)) and np.all(np.diff(xs[:, 0]) > 0) and applied < 1e-2 and predicted < 0.02):
+        raise AssertionError("the closed loop at accurate() fails its gates")
+    launches += counts[0]
+    out["accurate_hz"] = ACCURATE_STEPS / wall
+
+    # exact Hessians: the plain solve on the card against the CPU, float64
+    exact = S.SolverConfig(horizon=10, hessian_mode="exact")
+    mc, pc = load_main_path("cpu", torch.float64)
+    sargs = solve_inputs(m64, exact, x_mid, 2.0, 1)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = S.solve(m64, p64, exact, *sargs)
+    torch.cuda.synchronize()
+    out["exact_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    ref = S.solve(mc, pc, exact, *(a.cpu() for a in sargs))
+    cpu_s = time.perf_counter() - t0
+    err = max(rel_err(g, r) for g, r in zip(got, ref))
+    print(f"exact-Hessian solve h10 f64 (2x5 iterations): card {out['exact_s']:.2f} s, CPU {cpu_s:.2f} s; "
+          f"card vs CPU max |d|/max(1,|ref|) {err:.3e} (tol {EXACT_TOL:g}); cost {float(ref.cost):.4f}; "
+          f"launches {counts} (none: the kernel is Gauss-Newton only)")
+    if counts != (0, 0) or not err <= EXACT_TOL:
+        raise AssertionError("the exact-Hessian solve on the card disagrees with the CPU or launched a kernel")
+
+    # the fleet on the 1x1 NCCL mesh, bit-equal to closed_loop_batch
+    cfg = S.SolverConfig(horizon=10)
+    model, p = load_main_path(device, torch.float32)
+    x0b = torch.as_tensor(x0b_np, dtype=torch.float32, device=device)
+    runner.closed_loop_fleet(model, p, cfg, x0b, 2, mesh)  # warm-up: the NCCL communicator
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fleet = runner.closed_loop_fleet(model, p, cfg, x0b, MESH_FLEET_STEPS, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    batch = runner.closed_loop_batch(model, p, cfg, x0b, MESH_FLEET_STEPS)
+    same = all(torch.equal(f, b) for f, b in zip(fleet, batch))
+    per = [runner.applied_violation(model, p, runner.SimResult(*(a[b] for a in fleet))) for b in range(BATCH)]
+    bxs = fleet.xs.cpu().numpy()
+    out["fleet_solves_per_s"] = BATCH * MESH_FLEET_STEPS / wall
+    print(f"closed_loop_fleet on the 1x1 mesh: {BATCH} loops x {MESH_FLEET_STEPS} steps f32 in {wall:.3f} s = "
+          f"{out['fleet_solves_per_s']:.1f} solves/s; bit-equal to closed_loop_batch: {same}; applied "
+          f"violation, worst of instances 0-{FLEET_IN_BAND - 1} {max(per[:FLEET_IN_BAND]):.3e}; launches {counts}")
+    if counts != (MESH_FLEET_STEPS + 2, 0) or not same:
+        raise AssertionError(f"fleet on the mesh: launches {counts}, bit-equal {same}")
+    if not (np.all(np.isfinite(bxs)) and np.all(np.diff(bxs[:, :, 0], axis=1) > 0)
+            and max(per[:FLEET_IN_BAND]) < 1e-2):
+        raise AssertionError("the fleet on the mesh fails its gates")
+    launches += counts[0]
+
+    # the sequence-parallel profile on a 1-rank sp axis, float64
+    track64, tbr64, mx64 = search_setup(device, torch.float64)
+    with torch.no_grad():
+        mid = track64.mid_spline()
+        s = spline.uniform_samples(mid.length, track64.ns)[:-1]
+        k = spline.curvature(mid, s, signed=False)
+    errs = []
+    for name, veh in (("tbr18", tbr64), ("MX5", mx64)):
+        for closed, n in ((True, s.shape[0]), (False, 400)):
+            ref = velocity.solve_profile(veh, s[:n], k[:n], mid.length, closed)
+            got = sp_velocity.solve_profile_sp(veh, s[:n], k[:n], mid.length, mesh, closed, sweeps=24)
+            errs.append(float(((got - ref).abs() / ref.abs()).max()))
+    out["sp_ms"] = cuda_ms(lambda: sp_velocity.solve_profile_sp(tbr64, s, k, mid.length, mesh, True, sweeps=24), 3)
+    print(f"solve_profile_sp on a 1-rank sp axis vs solve_profile, f64 (tbr18, MX5 x closed, open): max "
+          f"|d|/|ref| {[f'{e:.2e}' for e in errs]} (tol {SP_TOL:g}); {out['sp_ms']:.2f} ms per closed tbr18 call")
+    if not max(errs) <= SP_TOL:
+        raise AssertionError("the sequence-parallel profile disagrees with solve_profile")
+
+    # one dp x sp round against search_step(solver="scan"), float64, B=16
+    alphas = torch.rand((16, track64.size), generator=torch.Generator(device=device).manual_seed(5),
+                        dtype=torch.float64, device=device)
+    steps = [fn(track64, tbr64, alphas, torch.Generator(device=device).manual_seed(5), 0.1)
+             for fn in (lambda *a: pmesh.search_step(*a, solver="scan", mesh=mesh),
+                        lambda *a: pmesh.search_step_dp_sp(*a, mesh))]
+    (nb_r, t_r, a_r), (nb, t, a) = steps
+    d_batch = float((nb - nb_r).abs().max())
+    ok = rel_err(t, t_r) <= 1e-9 and rel_err(a, a_r) <= 1e-9 and d_batch <= 1e-7
+    print(f"search_step_dp_sp on 1x1 vs search_step(scan), f64 B=16: best {float(t):.6f} s vs {float(t_r):.6f} s; "
+          f"new batch max |d| {d_batch:.2e} (tol 1e-7)")
+    if not ok:
+        raise AssertionError("search_step_dp_sp disagrees with search_step(solver='scan')")
+
+    # the evolutionary search on kernel 3
+    track, tbr18, _ = search_setup(device, torch.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, hist = pmesh.evolutionary_search(track, tbr18, mesh=mesh, batch=EVO_BATCH, rounds=EVO_ROUNDS, solver="fused")
+    torch.cuda.synchronize()
+    out["evo_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"evolutionary_search (tbr18, buckmore {WIDTH}, f32, batch {EVO_BATCH}, {EVO_ROUNDS} rounds, fused, 1x1): "
+          f"{out['evo_s']:.2f} s; best lap {hist[0]:.4f} -> {hist[-1]:.4f} s; launches {counts}")
+    if counts != (0, EVO_ROUNDS) or not (np.all(np.diff(hist) <= 0) and hist[-1] < hist[0]):
+        raise AssertionError("the evolutionary search fails its gates")
+    k3_launches += counts[1]
+
+    reset_counts()
+    scale = scaling.measure(track, tbr18, device_counts=(1, 2, 4, 8), batch_per_device=EVO_BATCH, rounds=3,
+                            solver="fused")
+    counts = read_counts()
+    print(f"scaling.measure on the 1-rank world (fused, {EVO_BATCH} per rank; launches {counts}):")
+    print(scaling.report(scale))
+    if set(scale) != {1} or counts != (0, 4):
+        raise AssertionError(f"scaling.measure: entries {sorted(scale)}, launches {counts}")
+    k3_launches += counts[1]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    mx, mf = gs.nonlinear(track, tbr18, seed=0, n_random=nl.n_random, n_refine=nl.n_refine, max_iter=nl.max_iter,
+                          solver="fused", mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    same = bool(torch.equal(mx, best_x)) and mf == best_f
+    print(f"nonlinear on the 1x1 mesh: {wall:.2f} s, search lap {mf:.4f} s, bit-equal to phase 6: {same}; "
+          f"launches {counts}")
+    if not same or counts != (0, 1):
+        raise AssertionError("nonlinear on the mesh differs from phase 6")
+    k3_launches += counts[1]
+    dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 9: {out['phase_s']:.1f} s")
+    return launches, k3_launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=500,
@@ -859,6 +1099,9 @@ def main(argv=None) -> int:
         raise AssertionError("NMPC progress on the CLI's artifacts is not monotone")
 
     # ---------------------------------------------------------------- phase 9
+    p9_solve, p9_k3, _ = phase_parallel(device, x0b_np, nl, best_x, best_f)
+
+    # ---------------------------------------------------------------- phase 10
     # Kernel 3's checks and timings come after every driven path, so that the
     # paths run in a fresh process: a profiler session leaves the process's
     # later launches slower (the NMPC loops read 11-20% lower on one card
@@ -866,7 +1109,7 @@ def main(argv=None) -> int:
     n_dec = search_setup("cpu", torch.float64)[0].n_decongested
     alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
     worst_k3_abs = 0.0
-    k3_inputs = {}  # dtype -> (tbr18, s, k, s_max) of the 1024 lines, timed in phase 10
+    k3_inputs = {}  # dtype -> (tbr18, s, k, s_max) of the 1024 lines, timed in phase 11
     for dtype in (torch.float64, torch.float32):
         track, tbr18, mx5 = search_setup(device, dtype)
         alphas = torch.as_tensor(alphas_np, dtype=dtype, device=device)
@@ -904,7 +1147,7 @@ def main(argv=None) -> int:
             if not rel <= LAP_TOL_F64:
                 raise AssertionError("fused lap times on the card disagree with the CPU")
 
-    # ---------------------------------------------------------------- phase 10
+    # ---------------------------------------------------------------- phase 11
     kname = "velocity_profile_batch_kernel"
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     k3_dev = {}
@@ -936,15 +1179,16 @@ def main(argv=None) -> int:
         profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
                        "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
 
-    # ---------------------------------------------------------------- phase 11
-    print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}")
+    # ---------------------------------------------------------------- phase 12
+    print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}, "
+          f"phase 9 {p9_solve}")
     print(json.dumps({"kernels": [{
         "name": "ilqr_solve",
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr.py:471 and "
                     "lap_time_optimization_tpu/ops/pallas_ilqr_batch.py:444",
-        "launches": launches + batch_launches,
+        "launches": launches + batch_launches + p9_solve,
         "max_abs_err": worst_f32_abs,
         "ms": solve_ms[1, 1],  # the wrapper launches one warp at B=1
         "plain_ms": plain_ms[1],
@@ -956,7 +1200,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/velocity.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_velocity.py:229",
-        "launches": nl_counts[1] + bo_counts[1] + again_counts[1] + race_k3,
+        "launches": nl_counts[1] + bo_counts[1] + again_counts[1] + race_k3 + p9_k3,
         "max_abs_err": worst_k3_abs,
         "ms": k3_ms,
         "plain_ms": k3_twin_ms,

@@ -1,8 +1,9 @@
 """Closed-loop NMPC driver: solve → clip → plant step → warm-start shift.
 
 Port of `lap_time_optimization_tpu/mpc/runner.py`: the single stream
-(`closed_loop`), the same in chunks with a checkpoint (`closed_loop_chunked`)
-and a fleet of independent loops on one device (`closed_loop_batch`).  Each
+(`closed_loop`), the same in chunks with a checkpoint (`closed_loop_chunked`),
+a fleet of independent loops on one device (`closed_loop_batch`) and the
+fleet sharded over a mesh's 'dp' ranks (`closed_loop_fleet`).  Each
 control cycle warm-starts the AL-iLQR from the shifted previous solution,
 applies the first input, clipped to the actuator rate and box limits, and
 integrates the plant (plant == model, like the reference's do_mpc simulator
@@ -25,6 +26,7 @@ from lap_time_optimization_tpu_torch.models.bicycle import NU, NX
 from lap_time_optimization_tpu_torch.mpc import solver as solver_mod
 from lap_time_optimization_tpu_torch.mpc.solver import n_con
 from lap_time_optimization_tpu_torch.ops import ilqr
+from lap_time_optimization_tpu_torch.parallel.distributed import gather_rows, shard_rows
 from lap_time_optimization_tpu_torch.utils import checkpoint
 
 #: Reference initial state [s, n, mu, vx, vy, r, steer, throttle]
@@ -136,6 +138,20 @@ def closed_loop_batch(model, p, cfg, x0_batch: torch.Tensor, steps: int) -> SimR
     carry = _presolve_batch(model, p, cfg, x0_batch, pk)
     _advance(model, p, cfg, carry, out, 0, steps, _step_fn_batch, pk)
     return out
+
+
+def closed_loop_fleet(model, p, cfg, x0_batch: torch.Tensor, steps: int, mesh) -> SimResult:
+    """`closed_loop_batch` with the fleet sharded over `mesh`'s 'dp' ranks
+    (`parallel.distributed`): every rank runs the loops of its block of
+    x0_batch (B, NX), replicated on every rank, with one solve per control
+    cycle, and one `all_gather` per output field at the end gives every rank
+    the whole fleet, in the layout of `closed_loop_batch`.  The loops are
+    independent, so nothing crosses ranks while they run.  A fleet that the
+    dp axis does not divide is padded by repeating its last initial state,
+    and the padded rows are dropped, as the JAX package does."""
+    b = x0_batch.shape[0]
+    local = closed_loop_batch(model, p, cfg, shard_rows(mesh, x0_batch, pad=True), steps)
+    return SimResult(*(gather_rows(mesh, field, b) for field in local))
 
 
 def _sim_fingerprint(model, p, cfg, x0) -> str:

@@ -6,18 +6,23 @@ input, z = [x (8), u_prev (2)], so the Δu penalty is Markovian, and every
 inequality is handled by one PHR augmented Lagrangian
     φ(g, λ, ρ) = 1/(2ρ)·(max(0, λ + ρ g)² − λ²).
 
-On a CUDA device a whole solve is one launch of the hand-written kernel
-behind `ops.ilqr.solve` (csrc/ilqr.cu: the rollout, every AL round and
-iLQR iteration, the multiplier updates and the outputs, one warp per OCP).
-On the CPU `ops.ilqr.solve` runs the plain version, `_solve` below: each
-iLQR iteration (`_iterate`) linearises the dynamics and quadraticises the
-AL cost stage-parallel in PyTorch, with analytic Jacobians, then runs the
-serial Riccati sweep and the line-search ladder in the iteration twins
-`ops.ilqr.backward_forward_reference` (one OCP) /
+On a CUDA device a whole Gauss-Newton solve is one launch of the
+hand-written kernel behind `ops.ilqr.solve` (csrc/ilqr.cu: the rollout,
+every AL round and iLQR iteration, the multiplier updates and the outputs,
+one warp per OCP).  On the CPU `ops.ilqr.solve` runs the plain version,
+`_solve` below: each iLQR iteration (`_iterate`) linearises the dynamics
+and quadraticises the AL cost stage-parallel in PyTorch, with analytic
+Jacobians, then runs the serial Riccati sweep and the line-search ladder in
+the iteration twins `ops.ilqr.backward_forward_reference` (one OCP) /
 `backward_forward_batch_reference` (a leading instance axis, for
 `solve_batch`).  Accept/reject, regularisation escalation and the
 multiplier update stay tensors combined with `torch.where`, so the plain
 solve makes no host sync either.
+
+`hessian_mode="exact"` quadraticises with the full Hessians of the AL
+stage and terminal costs (`torch.func` over the stages) and runs `_solve`
+on the tensors' own device, CPU or CUDA, as the JAX package runs exact
+mode only on its XLA path: the kernel is Gauss-Newton only.
 
 The solve's constants (`ops.ilqr.pack`) are built once by the closed loop
 that runs many solves and passed down; `solve` called alone builds its own.
@@ -51,6 +56,7 @@ NZ = NX + NU  # augmented state: model state + previous input
 N_CON = 14  # stage inequality count for the default model (see `constraints`)
 N_RES = 7  # stage residuals; the first N_RES_TERM form the terminal cost
 N_RES_TERM = 3
+HESSIAN_MODES = ("gauss_newton", "exact")
 
 
 def n_con(model) -> int:
@@ -108,8 +114,18 @@ class SolverConfig:
     reg_init: float = 1e-6
     # "gauss_newton": exact gradients + JᵀJ Hessians of the residual and
     # constraint stacks (the cost is a nonlinear least squares; PSD by
-    # construction).  "exact" (full Hessians) is not ported yet.
+    # construction); on CUDA tensors the solve kernel runs it.
+    # "exact": full Hessians of the AL costs by torch.func; it runs the
+    # plain solve `_solve` on the tensors' device (the kernel is GN only).
     hessian_mode: str = "gauss_newton"
+
+    @classmethod
+    def accurate(cls, horizon: int = 10, dt: float = 0.1) -> "SolverConfig":
+        """High-accuracy preset for offline solves and correctness tests: 4
+        RK4 substeps, 4 AL rounds × 8 iLQR iterations, 8 line-search rungs,
+        ρ 10 → ×5 (a Gauss-Newton configuration: the solve kernel runs it)."""
+        return cls(horizon=horizon, dt=dt, substeps=4, al_iters=4, ilqr_iters=8,
+                   n_linesearch=8, rho_init=10.0, rho_scale=5.0)
 
     @classmethod
     def for_horizon(cls, horizon: int, dt: float = 0.1) -> "SolverConfig":
@@ -226,8 +242,13 @@ def _box_rows(p, x, u, left, right):
 
 
 def _al_penalty(g, lam, rho):
-    """PHR augmented-Lagrangian term for g ≤ 0, summed over the rows."""
-    shifted = torch.clamp(lam + rho * g, min=0.0)
+    """PHR augmented-Lagrangian term for g ≤ 0, summed over the rows.
+    `torch.maximum` (not `clamp`) so that at λ + ρg = 0 its derivative
+    splits one half each way, as `jnp.maximum`'s does: the exact Hessian
+    of a tied row is then ρ/4 · ∇g∇gᵀ, as in the JAX package.  The values
+    are the same either way."""
+    x = lam + rho * g
+    shifted = torch.maximum(torch.zeros_like(x), x)
     return torch.sum((shifted**2 - lam**2) / (2.0 * rho), dim=-1)
 
 
@@ -373,13 +394,56 @@ def _terminal_quads_gauss_newton(model, p, z, lam, rho):
     return _gn(r[..., :N_RES_TERM], g, Jr[..., :N_RES_TERM, :NZ], Jg[..., :NZ], lam, rho)
 
 
+def _value_grad_hessian(f, x):
+    """(∇f(x), ∇²f(x)) of a scalar function of one vector, by forward over
+    reverse mode."""
+    def grad_twice(y):
+        g = torch.func.grad(f)(y)
+        return g, g
+
+    hess, grad = torch.func.jacfwd(grad_twice, has_aux=True)(x)
+    return grad, hess
+
+
+def _over_lead(fn, *args):
+    """`fn` of single-instance arguments mapped by `torch.func.vmap` over
+    the leading shape shared by `args` (each arg carries one trailing dim)."""
+    lead = args[0].shape[:-1]
+    flat = [a.reshape((-1,) + a.shape[-1:]) for a in args]
+    outs = torch.func.vmap(fn)(*flat)
+    return tuple(o.reshape(lead + o.shape[1:]) for o in outs)
+
+
+def _quads_exact(model, p, zs, us, lams, rho):
+    """Full second-order quadraticisation of the AL stage cost at every
+    stage (any leading shape of zs/us/lams), as the JAX package's
+    `_quads_exact` (jax.hessian): gradient and Hessian over [z, u].
+    Returns lz, lu, lzz, luu, luz."""
+    def one(zu, lam):
+        return _value_grad_hessian(lambda y: al_stage_cost(model, p, y[:NZ], y[NZ:], lam, rho), zu)
+
+    grad, hess = _over_lead(one, torch.cat([zs, us], dim=-1), lams)
+    return grad[..., :NZ], grad[..., NZ:], hess[..., :NZ, :NZ], hess[..., NZ:, NZ:], hess[..., NZ:, :NZ]
+
+
+def _terminal_quads_exact(model, p, z, lam, rho):
+    """Gradient and Hessian of the terminal AL cost over z (Vz, Vzz)."""
+    return _over_lead(
+        lambda zz, ll: _value_grad_hessian(lambda y: al_terminal_cost(model, p, y, ll, rho), zz), z, lam)
+
+
 def _kernel_inputs(model, p, cfg, zs, us, lams, rho):
     """The iteration twins' per-instance inputs, contiguous: stage
-    Jacobians A, B, the GN stage quads and the terminal quads."""
+    Jacobians A, B, the stage quads and the terminal quads (Gauss-Newton or
+    exact, by `cfg.hessian_mode`)."""
     A, B = _linearize_joint(model, cfg, zs, us)
-    quads = _quads_gauss_newton(model, p, zs[..., :-1, :], us, lams[..., :-1, :], rho)
-    Vz, Vzz = _terminal_quads_gauss_newton(model, p, zs[..., -1, :], lams[..., -1, :], rho)
-    return [t.contiguous() for t in (A, B, *quads, Vz, Vzz)]
+    if cfg.hessian_mode == "exact":
+        quads, terminal = _quads_exact, _terminal_quads_exact
+    else:
+        quads, terminal = _quads_gauss_newton, _terminal_quads_gauss_newton
+    stage = quads(model, p, zs[..., :-1, :], us, lams[..., :-1, :], rho)
+    Vz, Vzz = terminal(model, p, zs[..., -1, :], lams[..., -1, :], rho)
+    return [t.contiguous() for t in (A, B, *stage, Vz, Vzz)]
 
 
 def _iterate(model, p, cfg, zs, us, lams, rho, reg, pk):
@@ -416,8 +480,8 @@ def _solve(model, p, cfg, z0, us_init, lam_init, pk) -> SolveResult:
     schedule for all instances; accept/reject and reg escalation are per
     instance, through `torch.where` on masks of z0's leading shape, with no
     host sync."""
-    if cfg.hessian_mode != "gauss_newton":
-        raise NotImplementedError(f"hessian_mode={cfg.hessian_mode!r} is not ported yet")
+    if cfg.hessian_mode not in HESSIAN_MODES:
+        raise ValueError(f"hessian_mode={cfg.hessian_mode!r} is not one of {HESSIAN_MODES}")
     dtype, device = z0.dtype, z0.device
     zs = _rollout(model, cfg, z0, us_init)
     us, lams = us_init, lam_init
@@ -446,22 +510,32 @@ def _solve(model, p, cfg, z0, us_init, lam_init, pk) -> SolveResult:
     )
 
 
+def _dispatch(model, p, cfg, z0, us_init, lam_init, pack) -> SolveResult:
+    """Gauss-Newton: `ops.ilqr.solve` (the kernel on CUDA tensors, the
+    plain solve on the CPU).  Exact: the plain solve on z0's device, the
+    counterpart of JAX's exact mode, which runs on its XLA path only."""
+    pk = ilqr.pack(model, p, cfg) if pack is None else pack
+    if cfg.hessian_mode == "exact":
+        return _solve(model, p, cfg, z0, us_init, lam_init, pk)
+    return SolveResult(*ilqr.solve(model, p, cfg, z0, us_init, lam_init, pk))
+
+
 def solve(model, p, cfg: SolverConfig, z0, us_init, lam_init, pack=None) -> SolveResult:
     """Solve the horizon OCP from z0 (NZ,), warm-started at us_init (N, NU)
     and lam_init (N+1, n_con), with the constants `pack` (`ops.ilqr.pack`;
-    built here if None).  On CUDA tensors: one launch of the solve kernel."""
+    built here if None).  On CUDA tensors in Gauss-Newton mode: one launch
+    of the solve kernel; exact mode runs the plain solve."""
     if z0.dim() != 1:
         raise ValueError(f"solve takes one OCP, z0 (NZ,); got {tuple(z0.shape)}: use solve_batch")
-    pk = ilqr.pack(model, p, cfg) if pack is None else pack
-    return SolveResult(*ilqr.solve(model, p, cfg, z0, us_init, lam_init, pk))
+    return _dispatch(model, p, cfg, z0, us_init, lam_init, pack)
 
 
 def solve_batch(model, p, cfg: SolverConfig, z0_b, us_init_b, lam_init_b, pack=None) -> SolveResult:
     """Solve B independent horizon OCPs (leading axis B on every argument
     and on every field of the result).  Per instance it is `solve`: the same
     AL schedule, with per-instance step acceptance and reg escalation.  On
-    CUDA tensors: one launch of the solve kernel for all B."""
+    CUDA tensors in Gauss-Newton mode: one launch of the solve kernel for
+    all B; exact mode runs the plain solve over the batch."""
     if z0_b.dim() != 2:
         raise ValueError(f"solve_batch takes z0_b (B, NZ); got {tuple(z0_b.shape)}")
-    pk = ilqr.pack(model, p, cfg) if pack is None else pack
-    return SolveResult(*ilqr.solve(model, p, cfg, z0_b, us_init_b, lam_init_b, pk))
+    return _dispatch(model, p, cfg, z0_b, us_init_b, lam_init_b, pack)

@@ -276,7 +276,9 @@ def _check_solve(cfg, z0, us_init, lam_init, pk: Pack):
     """Raise on what the solve kernel does not take (before any build);
     returns the leading instance shape, () or (B,)."""
     if cfg.hessian_mode != "gauss_newton":
-        raise NotImplementedError(f"hessian_mode={cfg.hessian_mode!r} is not ported yet")
+        raise NotImplementedError(
+            f"hessian_mode={cfg.hessian_mode!r}: the solve kernel is Gauss-Newton only; "
+            "exact Hessians run on mpc.solver's plain path (solver._solve)")
     if z0.dtype not in _ENTRY:
         raise TypeError(f"the solve kernel takes float32 or float64, not {z0.dtype}")
     if z0.dim() not in (1, 2):

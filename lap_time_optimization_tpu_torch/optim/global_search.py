@@ -36,6 +36,7 @@ import torch
 
 from lap_time_optimization_tpu_torch.ops import gp as gp_ops
 from lap_time_optimization_tpu_torch.ops import optimize, spline, velocity, velocity_batch
+from lap_time_optimization_tpu_torch.parallel.distributed import gather_rows, shard_rows
 from lap_time_optimization_tpu_torch.track import Track
 from lap_time_optimization_tpu_torch.utils import checkpoint as ckpt
 from lap_time_optimization_tpu_torch.utils.profiling import Heartbeat
@@ -126,22 +127,33 @@ def _finite(x: torch.Tensor) -> torch.Tensor:
 
 
 # -------------------------------------------------------------------- nonlinear
-def _nonlinear_select(track: Track, vehicle, cands: torch.Tensor, n_refine: int, solver: str):
-    times = _batch_lap_times(track, vehicle, cands, solver)
+def _nonlinear_select(track: Track, vehicle, cands: torch.Tensor, n_refine: int, solver: str,
+                      mesh=None):
+    """Lap times of every candidate (each dp rank of `mesh` scores its block),
+    their order, and the n_refine best candidates."""
+    times = gather_rows(mesh, _batch_lap_times(track, vehicle, shard_rows(mesh, cands, pad=True), solver),
+                        cands.shape[0])
     order = torch.argsort(times, stable=True)
     return times, order, cands[order[:n_refine]]
 
 
 def nonlinear(track: Track, vehicle, seed: int = 0, n_random: int = 1024, n_refine: int = 10,
-              max_iter: int = 100, solver: str = "scan"):
+              max_iter: int = 100, solver: str = "scan", mesh=None):
     """Batched random search + batched gradient refinement (vs tbn.py:230-269).
-    Returns (best alphas (n_dec,), best lap time)."""
+    Returns (best alphas (n_dec,), best lap time).
+
+    With `mesh` (a `DeviceMesh`, `parallel.distributed`), the candidate
+    selection and the refinement fan-out shard over its 'dp' ranks: each
+    rank scores and refines its block of rows (the last row repeated where
+    dp does not divide them), one `all_gather` each gives every rank all the
+    results, and every rank returns the same best lap."""
     grad_solver = _grad_solver(solver)
     gen = torch.Generator(device=track.left.device)
     gen.manual_seed(seed)
     cands = _uniform(gen, (n_random, track.n_decongested), track)
-    times, order, seeds = _nonlinear_select(track, vehicle, cands, n_refine, solver)
-    res = _refine(track, vehicle, seeds, max_iter, grad_solver)
+    times, order, seeds = _nonlinear_select(track, vehicle, cands, n_refine, solver, mesh)
+    res = _refine(track, vehicle, shard_rows(mesh, seeds, pad=True), max_iter, grad_solver)
+    res = optimize.MinimizeResult(*(gather_rows(mesh, t, seeds.shape[0]) for t in res))
     f_ref = _finite(res.fun)
     best_ref = torch.argmin(f_ref)
     best_rand = order[0]

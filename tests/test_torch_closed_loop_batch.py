@@ -86,10 +86,19 @@ def test_solve_batch_is_solve_per_instance(base, n_con):  # noqa: F811
 
 
 def test_solve_batch_rejects_exact_hessians(base):  # noqa: F811
+    """Exact Hessians never reach the solve kernel: its check refuses them
+    (the kernel is Gauss-Newton only), and solve_batch runs them on the
+    plain path, with no kernel launch (held to JAX in
+    tests/test_torch_solver_exact.py)."""
     _, _, tm, tp = _pair(base, "float64")
+    cfg = TS.SolverConfig(horizon=10, al_iters=1, ilqr_iters=1, hessian_mode="exact")
     args = [torch.from_numpy(a) for a in _batch_inputs(float(base[1].s_max), 14, "float64")]
     with pytest.raises(NotImplementedError, match="hessian_mode"):
-        TS.solve_batch(tm, tp, TS.SolverConfig(horizon=10, hessian_mode="exact"), *args)
+        ilqr._check_solve(cfg, *args, ilqr.pack(tm, tp, cfg))
+    launches = ilqr.SOLVE_LAUNCHES
+    got = TS.solve_batch(tm, tp, cfg, *args)
+    assert ilqr.SOLVE_LAUNCHES == launches
+    assert got.us.shape == (3, 10, 2) and bool(torch.isfinite(got.cost).all())
 
 
 def _fleet_states():
