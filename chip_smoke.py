@@ -52,12 +52,15 @@ Phases:
    (the card's seeded searches are reproducible), and once with gather's
    atomic backward for the cost of the deterministic one; the lap-time
    objective's value and gradient replayed from its CUDA graph against
-   the eager call (bit-equal), both timed; then the five methods through
-   the CLI, each gated on the scan oracle's lap of its
-   line (curvature and compromise below the published lap × 1.01,
-   laptime below the published 40.892 s, sectors below the published
-   curvature lap, estimated below 40 s), with its wall time, L-BFGS
-   iterations and kernel-3 launches (1 per ε sweep, 1 per sector sweep, 1
+   the eager call (bit-equal), both timed; `minimize_bounded_chunked` in
+   chunks of 7 against `minimize_bounded` on the curvature objective
+   (float32, two lines, 100 iterations: bit-equal, one graph capture per
+   run); then the five methods through the CLI, each gated on the scan
+   oracle's lap of its line (curvature and compromise below the published
+   lap × 1.01, laptime, which runs the chunked loop with one capture,
+   below the published 40.892 s, sectors below the published curvature
+   lap, estimated below 40 s), with its wall time, L-BFGS iterations, graph
+   captures and kernel-3 launches (1 per ε sweep, 1 per sector sweep, 1
    per evaluate); then the MX-5 curvature artifacts of the CLI and 20 NMPC
    cycles on them (finite states, monotone progress, both violation
    readings);
@@ -314,32 +317,38 @@ def race_cases(conf):
 def run_race(method, vehicle, width, out_dir):
     """`cli/race.main` for one method on the card (float32, fused), its
     output kept apart: (result, wall s, launches, L-BFGS iterations of each
-    minimisation, the largest over its instances)."""
+    minimisation, the largest over its instances, graph captures)."""
     from lap_time_optimization_tpu_torch.cli import race
     from lap_time_optimization_tpu_torch.ops import optimize
 
     iters = []
-    orig = optimize.minimize_bounded
+    names = ("minimize_bounded", "minimize_bounded_chunked")
+    origs = {name: getattr(optimize, name) for name in names}
 
-    def counted(*a, **kw):
-        res = orig(*a, **kw)
-        iters.append(int(res.n_iter.max()))
-        return res
+    def counted(orig):
+        def run(*a, **kw):
+            res = orig(*a, **kw)
+            iters.append(int(res.n_iter.max()))
+            return res
+        return run
 
     argv = [os.path.join(ROOT, "data", "tracks", "buckmore.json"),
             os.path.join(ROOT, "data", "vehicles", f"{vehicle}.json"), str(width), f"--{method}",
             "--device", "cuda", "--dtype", "float32", "--solver", "fused", "--output-dir", out_dir]
-    optimize.minimize_bounded = counted
+    for name, orig in origs.items():
+        setattr(optimize, name, counted(orig))
     try:
         reset_counts()
+        optimize.GraphedValueAndGrad.CAPTURES = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             out = race.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        optimize.minimize_bounded = orig
-    return out, wall, read_counts(), iters
+        for name, orig in origs.items():
+            setattr(optimize, name, orig)
+    return out, wall, read_counts(), iters, optimize.GraphedValueAndGrad.CAPTURES
 
 
 def atomic_backward_run(fn):
@@ -383,6 +392,29 @@ def graph_check(track, veh, seed=11):
     eager_ms = cuda_ms(lambda: optimize._value_and_grad(fun, xs[1]), 3)
     replay_ms = cuda_ms(lambda: graphed(xs[1]), 10)
     return same, capture_s, eager_ms, replay_ms
+
+
+def chunked_check(track, max_iter=100, chunk=7, seed=12):
+    """`minimize_bounded_chunked` in chunks of `chunk` against
+    `minimize_bounded` on the curvature objective Γ² of the track, two
+    instances (the centre line and a seeded line), `max_iter` iterations:
+    (bit-equal, n_iter, [graph captures], [wall s]) of the two runs."""
+    from lap_time_optimization_tpu_torch.ops import optimize
+    from lap_time_optimization_tpu_torch.optim import racing_line as rl
+
+    fun = lambda a: rl.gamma2_objective(track, a)
+    x0 = np.stack([np.full(track.size, 0.5), np.random.default_rng(seed).uniform(0.3, 0.7, track.size)])
+    x0 = torch.as_tensor(x0, dtype=track.left.dtype, device=track.left.device)
+    runs, captures, walls = [], [], []
+    for minimise, kw in ((optimize.minimize_bounded, {}), (optimize.minimize_bounded_chunked, {"chunk": chunk})):
+        optimize.GraphedValueAndGrad.CAPTURES = 0
+        t0 = time.perf_counter()
+        runs.append(minimise(fun, x0, max_iter=max_iter, **kw))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        captures.append(optimize.GraphedValueAndGrad.CAPTURES)
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    return same, runs[0].n_iter.tolist(), captures, walls
 
 
 def sector_lines(track, n_grid=8, seed=13):
@@ -1061,23 +1093,36 @@ def main(argv=None) -> int:
     if not same_graph:
         raise AssertionError("the graphed value and gradient differ from the eager ones")
 
+    reset_counts()
+    same_chunked, chunked_iters, captures, walls = chunked_check(track)
+    chunked_counts = read_counts()
+    print(f"minimize_bounded_chunked (chunks of 7) vs minimize_bounded on the curvature objective (buckmore "
+          f"{WIDTH}, f32, 2 lines, 100 iterations): bit-equal {same_chunked}; n_iter {chunked_iters}; graph "
+          f"captures (unchunked, chunked) {captures}; {walls[0]:.2f} s and {walls[1]:.2f} s; "
+          f"launches {chunked_counts}")
+    if not same_chunked or captures != [1, 1] or chunked_counts != (0, 0):
+        raise AssertionError("the chunked L-BFGS run differs from the whole run, or captured its graph "
+                             f"more than once ({captures})")
+
     race_dir = os.path.join(ROOT, "build", "chip_smoke_race")
     shutil.rmtree(race_dir, ignore_errors=True)
     race_k3 = 0
     for method, gate, k3_expected in race_cases(conf):
-        out, wall, counts, iters = run_race(method, "tbr18", WIDTH, race_dir)
+        out, wall, counts, iters, race_captures = run_race(method, "tbr18", WIDTH, race_dir)
         lap, laps = line_report(track, tbr18, out["alphas"])
         race_k3 += counts[1]
         print(f"race --{method} (tbr18, buckmore {WIDTH}, f32, fused): {wall:.2f} s; L-BFGS iterations "
-              f"{iters}; CLI lap {out['lap_time']:.4f} s (kernel 3), {laps} (gate {gate:.3f}); "
-              f"launches (solve kernel, kernel 3) {counts}")
+              f"{iters}; graph captures {race_captures}; CLI lap {out['lap_time']:.4f} s (kernel 3), {laps} "
+              f"(gate {gate:.3f}); launches (solve kernel, kernel 3) {counts}")
         if counts != (0, k3_expected):
             raise AssertionError(f"--{method} launches {counts}, expected (0, {k3_expected})")
+        if method == "laptime" and race_captures != 1:
+            raise AssertionError(f"--laptime captured its graph {race_captures} times, expected 1")
         if not (np.isfinite(lap) and lap < gate):
             raise AssertionError(f"--{method} lap {lap:.4f} s above its gate {gate:.3f} s")
 
     # pipeline 1 → pipeline 2: the CLI's MX-5 curvature artifacts drive the NMPC
-    out, wall, counts, _ = run_race("curvature", "MX5", MX5_WIDTH, race_dir)
+    out, wall, counts, _, _ = run_race("curvature", "MX5", MX5_WIDTH, race_dir)
     race_k3 += counts[1]
     mtrack = mpc_track.load("MX-5", "buckmore", "curvature", base_dir=race_dir)
     mmodel = BicycleModel(load_vehicle("MX5"), mtrack).to(device, torch.float32)

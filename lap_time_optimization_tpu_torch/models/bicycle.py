@@ -253,13 +253,29 @@ class BicycleModel(nn.Module):
         right = -n + lon + lat - self.track.dist_right(s)
         return left, right
 
+    def traction_ellipse(self, throttle, vx, vy, r, delta, rho=1.0, alpha=1.0):
+        """The reference's friction-ellipse residuals, as it wrote them
+        (src/mpc/model.py:86-99, defined but disabled there):
+
+            g = (ρ·Fx/2)² + Fy² − (α·D)²
+
+        per axle.  They compare forces in N² against the normalised Pacejka
+        peak D² and cannot be met; the solver's rows use
+        `traction_ellipse_physical`."""
+        veh = self.vehicle
+        longf = rho * 0.5 * self.motor_force(throttle)
+        af, ar = self.slip_angles(vx, vy, r, delta)
+        Fy_f, Fy_r = self.lateral_forces(af, ar)
+        Df = alpha * veh.D_f
+        Dr = alpha * veh.D_r
+        return longf**2 + Fy_f**2 - Df**2, longf**2 + Fy_r**2 - Dr**2
+
     def traction_ellipse_physical(self, throttle, vx, vy, r, delta, rho=1.0, alpha=1.0):
         """Dimensionally consistent friction-ellipse residuals ≤ 0:
 
             g = ((ρ·Fx/2)² + Fy² − (α·D·Fn)²) / (α·D·Fn)²
 
-        (the reference's form, src/mpc/model.py:86-99, compares N² against the
-        normalised peak D² and is unsatisfiable; it is not ported)."""
+        (`traction_ellipse`, the reference's form, is unsatisfiable)."""
         veh = self.vehicle
         wheelbase = veh.length_f + veh.length_r
         Fn_f = veh.length_r * veh.mass * GRAV / wheelbase

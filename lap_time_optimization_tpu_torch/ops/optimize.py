@@ -1,4 +1,4 @@
-"""Bounded L-BFGS with a batched ladder line search — port of part of
+"""Bounded L-BFGS with a zoom or a batched ladder line search — port of
 `lap_time_optimization_tpu/ops/optimize.py`.
 
 The reference drives its racing-line searches through scipy's L-BFGS-B with
@@ -35,9 +35,10 @@ profile and its backward), whose launches would otherwise set the time.  The
 objective must then run without a host sync, and a replay computes what the
 eager call computes, bit for bit.
 
-The host-chunked segmenting of the JAX package (`minimize_bounded_chunked`)
-exists for a TPU runtime's program deadline and is not ported: chunks do not
-change the iterates.
+`minimize_bounded_chunked` is the JAX package's host-chunked run (there for
+a TPU runtime's program deadline): one stepper, and on the card one graph
+per shape, advanced `chunk` iterations at a time from a host loop, its
+iterates those of `minimize_bounded` bit for bit.
 """
 
 from __future__ import annotations
@@ -83,9 +84,11 @@ class GraphedValueAndGrad:
     calls on a side stream, then one call under `torch.cuda.graph`.  Both
     run the dense linear solves (the spline fits) on cuSOLVER: PyTorch's
     default picks MAGMA for batched solves, whose calls cannot be captured
-    (the capture is invalidated)."""
+    (the capture is invalidated).  `CAPTURES` counts the captures of every
+    instance (tests and chip_smoke.py reset and read it)."""
 
     WARMUP = 2
+    CAPTURES = 0
 
     def __init__(self, fun):
         self.fun = fun
@@ -103,6 +106,7 @@ class GraphedValueAndGrad:
         return f_out.clone(), g_out.clone()
 
     def _capture(self, x: torch.Tensor):
+        GraphedValueAndGrad.CAPTURES += 1
         x_in = x.detach().clone()
         main = torch.cuda.current_stream(x.device)
         side = torch.cuda.Stream(device=x.device)
@@ -563,3 +567,27 @@ def minimize_bounded(fun, x0: torch.Tensor, lo: float = 0.0, hi: float = 1.0,
                                      memory_size=memory_size, dtype=x0.dtype,
                                      linesearch=linesearch)
     return fin(run(init(x0), max_iter))
+
+
+def minimize_bounded_chunked(fun, x0: torch.Tensor, lo: float = 0.0, hi: float = 1.0,
+                             max_iter: int = 200, tol: float = 1e-6, memory_size: int = 15,
+                             linesearch: str = "zoom", chunk: int = 50) -> MinimizeResult:
+    """`minimize_bounded` advanced at most `chunk` iterations at a time from
+    a host loop, as the JAX package's (which splits a run into device
+    programs shorter than a TPU runtime's deadline).  One `bounded_stepper`
+    serves every chunk, so on the card its value and gradient are captured
+    once per shape, and the iterates are `minimize_bounded`'s bit for bit.
+    The loop reads the iteration counts (K,) once per chunk and ends when
+    every row has reached `max_iter`, or when a chunk advanced no row: JAX's
+    `it >= max_iter or it == prev_it` over the instance axis."""
+    init, run, fin = bounded_stepper(fun, lo=lo, hi=hi, max_iter=max_iter, tol=tol,
+                                     memory_size=memory_size, dtype=x0.dtype,
+                                     linesearch=linesearch)
+    carry = init(x0)
+    prev_it = -1
+    while True:
+        carry = run(carry, chunk)
+        it = carry[2].cpu()
+        if bool((it >= max_iter).all()) or bool((it == prev_it).all()):
+            return fin(carry)
+        prev_it = it

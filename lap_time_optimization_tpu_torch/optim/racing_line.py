@@ -193,16 +193,16 @@ def minimise_optimal_compromise(track: Track, vehicle, eps_min: float = EPS_MIN,
 
 
 def minimise_lap_time(track: Track, vehicle, max_iter: int = 300, linesearch: str = "zoom",
-                      solver: str = "scan"):
+                      solver: str = "scan", chunk: int = 50):
     """Minimise lap time directly through the differentiable profile (vs
     src/trajectory.py:128-146, which differentiates the 3-pass solve
-    numerically).  One `minimize_bounded` run: the JAX package's host
-    chunks do not change the iterates.  The gradient runs on "assoc" with
-    `solver="fused"`."""
+    numerically), through `optimize.minimize_bounded_chunked` in chunks of
+    `chunk` iterations as the JAX package: the iterates do not depend on
+    `chunk`.  The gradient runs on "assoc" with `solver="fused"`."""
     grad_solver = _grad_solver(solver)
-    return _one(optimize.minimize_bounded(lambda a: lap_time_of(track, vehicle, a, grad_solver),
-                                          _start(track, 1), max_iter=max_iter,
-                                          linesearch=linesearch))
+    return _one(optimize.minimize_bounded_chunked(
+        lambda a: lap_time_of(track, vehicle, a, grad_solver), _start(track, 1),
+        max_iter=max_iter, linesearch=linesearch, chunk=chunk))
 
 
 # --------------------------------------------------------------------------- corners / estimated

@@ -134,3 +134,29 @@ def test_linearisation_and_quads_match(params, kind, tv, te):
                                             torch.tensor(rho, dtype=torch.float64))
     for g, r in zip(got_t, ref_t):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-11, atol=1e-11)
+
+
+def test_traction_ellipse_matches(params):
+    """The reference's raw friction-ellipse form on 64 seeded points of
+    (throttle, vx, vy, r, delta, ρ, α), both axles (rtol 1e-12)."""
+    jm, tm, _, _ = _pair(params)
+    rng = np.random.default_rng(11)
+    lo_hi = ((-1.0, 1.0), (1.0, 25.0), (-2.0, 2.0), (-1.5, 1.5), (-0.4, 0.4), (0.5, 1.5), (0.5, 1.5))
+    grid = [rng.uniform(lo, hi, 64) for lo, hi in lo_hi]
+    ref = jm.traction_ellipse(*(jnp.asarray(g) for g in grid))
+    got = tm.traction_ellipse(*(torch.as_tensor(g) for g in grid))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12)
+
+
+def test_traction_ellipse_raw_form(params):
+    """tests/test_flags.py's TestTractionEllipse on the port: more drive
+    force consumes ellipse margin on both axles, and at a gentle state,
+    where the physical form holds, the raw form reads > 1e3."""
+    tm = _pair(params)[1]
+    state = lambda thr: [torch.tensor(v, dtype=torch.float64) for v in (thr, 8.0, 0.0, 0.0, 0.0)]
+    g_lo, g_hi = tm.traction_ellipse(*state(0.1)), tm.traction_ellipse(*state(0.9))
+    assert float(g_hi[0]) > float(g_lo[0]) and float(g_hi[1]) > float(g_lo[1])
+    raw_f, _ = tm.traction_ellipse(*state(0.2))
+    phys_f, phys_r = tm.traction_ellipse_physical(*state(0.2))
+    assert float(raw_f) > 1e3 and float(phys_f) < 0.0 and float(phys_r) < 0.0

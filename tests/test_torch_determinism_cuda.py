@@ -7,9 +7,11 @@ same seed gave different lines.  `ops/spline._KnotGather` reduces them in
 a fixed order on the card.  Here: the masked reduction against
 scatter_add on the card; two seeded `nonlinear` runs bit-equal; the zoom
 L-BFGS with its value and gradient replayed from a CUDA graph equal to the
-eager run; and the velocity solver's row roll (`ops/velocity._roll_rows`, a
-gather whose indices are a permutation of each row, so each destination
-receives exactly one add) giving bit-equal gradients run after run.
+eager run, and its host-chunked run (`minimize_bounded_chunked`) equal to
+the whole run with one capture; and the velocity solver's row roll
+(`ops/velocity._roll_rows`, a gather whose indices are a permutation of
+each row, so each destination receives exactly one add) giving bit-equal
+gradients run after run.
 
 Imports neither JAX nor the JAX package:
 
@@ -102,6 +104,32 @@ def test_graphed_zoom_equals_eager(objective, monkeypatch):
         torch.backends.cuda.preferred_linalg_library(linalg)
     assert int(graphed.n_iter.max()) == iters
     assert torch.equal(graphed.x, eager.x) and torch.equal(graphed.n_iter, eager.n_iter)
+
+
+@pytest.mark.cuda
+def test_chunked_zoom_equals_unchunked_with_one_capture():
+    """`minimize_bounded_chunked` (chunks of 7) against `minimize_bounded`
+    on the curvature objective, float32 on buckmore 0.99, two instances,
+    20 iterations: bit-equal, and each run captures its value and gradient
+    once (one shape)."""
+    _need_cuda()
+    from lap_time_optimization_tpu_torch.ops import optimize
+    from lap_time_optimization_tpu_torch.optim import racing_line
+
+    track, _ = _setup(torch.float32)
+    fun = lambda a: racing_line.gamma2_objective(track, a)
+    x0 = torch.as_tensor(np.random.default_rng(8).uniform(0.3, 0.7, (2, track.size)),
+                         dtype=torch.float32, device="cuda")
+    runs, captures = [], []
+    for minimise in (optimize.minimize_bounded, optimize.minimize_bounded_chunked):
+        optimize.GraphedValueAndGrad.CAPTURES = 0
+        kw = {"chunk": 7} if minimise is optimize.minimize_bounded_chunked else {}
+        runs.append(minimise(fun, x0, max_iter=20, **kw))
+        captures.append(optimize.GraphedValueAndGrad.CAPTURES)
+    assert captures == [1, 1]
+    assert int(runs[0].n_iter.max()) == 20
+    for name, a, b in zip(runs[0]._fields, *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
