@@ -19,7 +19,12 @@ compromise, laptime, sectors and estimated at its default budget; then the
 MX-5 curvature artifacts it writes driving the NMPC.  Then the paths of
 `SolverConfig.accurate()`, exact Hessians and `parallel/` on a 1-rank
 NCCL process group on the one card the script uses (the multi-rank
-semantics are held on gloo ranks by the CPU tests).
+semantics are held on gloo ranks by the CPU tests).  Then full-size
+circuits, past both kernels' shared-memory ceilings: the NMPC loops on a
+table of the Nürburgring Nordschleife's 20,832 samples, the nonlinear
+search's selection on seeded synthetic circuits of its and
+Spa-Francorchamps' lengths (`track.synthetic_circuit`), and `--curvature`
+through the CLI on the 20 km one.
 Phases:
 
 1. versions, the card's name and power limit, TF32 off;
@@ -79,7 +84,27 @@ Phases:
    history, lower at the end; 1 kernel-3 launch per round);
    `scaling.measure` on the 1-rank world; and `nonlinear(mesh=1×1)`,
    bit-equal to phase 6;
-10. kernel 3 vs its twin on 1024 real candidate geometries (closed,
+10. long tracks: (a) the solve kernel with its table forced into global
+   memory, bit-equal to the shared table on buckmore (f32 and f64, B = 1
+   and 32), and both timed at B=1; (b) the shipped MX-5 curvature
+   artifacts loaded with 20,832 samples (the table in global memory): one
+   solve against the plain solve (f64 and f32), the horizon ceiling of the
+   global placement found from the kernel's shared-memory sizes and run
+   (one more refused), and 100 single-stream cycles (f32, h10, launches
+   counted, applied violation < 1e-2); (c) the 32-loop fleet for 20 cycles
+   on it (finite states; instances 0-24 gated on the band and on progress:
+   the JAX package's own controller drives 25-31 off the track there); the
+   solve kernel timed on the long table
+   at B = 1 and 32 beside buckmore's; (d) kernel 3 with its arrays forced
+   into the global scratch, bit-equal to the shared placement on the 1024
+   tbr18 buckmore rows of phase 11 (tbr18 and MX5, closed and open, P = 1,
+   4, 16, f32 and f64); (e) the nonlinear selection (1024 candidates, one
+   kernel-3 launch) on a 20,831 m synthetic circuit in f32 and a 7,003 m
+   one in f64, written as track JSONs in a temporary directory, 32 rows of
+   each against the twin on the CPU; (f) `--curvature --solver fused`
+   through the CLI on the 20 km circuit, its lap against the scan oracle's
+   on the same line;
+11. kernel 3 vs its twin on 1024 real candidate geometries (closed,
    B=1024, N=846; open, the first 300 samples; ragged B=160), on the
    sector windows of phase 8 (open, B = sectors × 8, N = the windows'
    samples) and on hard rows (NaN samples, a row all NaN, constant
@@ -87,14 +112,15 @@ Phases:
    tbr18 and MX5, float64 and float32, with 1, 4 and 16 segments per
    sweep, and f64 `_batch_lap_times(solver="fused")` on the card against
    the CPU; kernel 3's dynamic shared memory per block;
-11. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
+12. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
    Bayesian round, the nonlinear selection) for 1, 4 and 16 segments,
    float32 and float64, by its device time in torch.profiler, and the
-   wrapper and the twin per call; then, with --profile, the profiles of
-   both NMPC loops.  Phases 10-11 come after every driven path, so the paths
-   run in a fresh process, and a profiler session, which slows the
-   process's later launches, comes after every timed path;
-12. the summary lines; the last one is {"ok": true, "device": {...}}.
+   wrapper and the twin per call, and at phase 10's long selections; then,
+   with --profile, the profiles of both NMPC loops.  Phases 11-12 come
+   after every driven path, so the paths run in a fresh process, and a
+   profiler session, which slows the process's later launches, comes after
+   every timed path;
+13. the summary lines; the last one is {"ok": true, "device": {...}}.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -114,6 +140,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -196,6 +223,28 @@ EXACT_TOL, SP_TOL = 1e-9, 1e-9
 # against the plain solve's, max |d| / max(1, |ref|) (read 7.7e-4 on an
 # H100; the bistable instances' inputs are the phase's own, see there).
 ACCURATE_F32_COST_TOL = 1e-2
+# Phase 10, long tracks: the samples of one lap at one a metre on the
+# Nürburgring Nordschleife (20.832 km) and Spa-Francorchamps (7.004 km), the
+# NMPC's cycles on the long table, the fleet's, and the rows of each long
+# selection held against the twin, which runs on the CPU (its 2N-step loop
+# on the card would take ~50 s at N = 20,831; on the CPU it takes numpy's
+# correctly rounded sqrt, as the card's is, so the kernel's bits are its).
+LONG_NS, SPA_NS = 20832, 7004
+LONG_STEPS, LONG_FLEET_STEPS = 100, 20
+LONG_ROWS = 32
+# bench.py's fleet on the long table: the JAX package's own controller (XLA,
+# float32, on the CPU) drives instances 25-31 over the left limit within 20
+# cycles there (0.0283, 0.0622, 0.151, 0.503, 0.929, 2.705, 0.418 m; 26-31
+# on the 846-sample table, FLEET_IN_BAND), and instance 30's progress goes
+# backwards, so the applied-state and progress gates hold instances 0-24,
+# every instance is held to finite states, and the others are printed.
+LONG_FLEET_IN_BAND = 25
+# The --curvature lap of the 20 km circuit by kernel 3 (the CLI's, f32)
+# against the scan oracle's on the same line (f32), relative: the profiles
+# may differ in the last place (force·(1/mass) against force/mass); on the
+# CPU the twin's and the scan's laps of that line are equal, and the f32
+# scan lies 1.0e-5 from the f64 one.
+LONG_LAP_RTOL = 1e-5
 
 
 def nvidia_smi() -> str:
@@ -314,10 +363,11 @@ def race_cases(conf):
             ("estimated", 40.0, 1))
 
 
-def run_race(method, vehicle, width, out_dir):
+def run_race(method, vehicle, width, out_dir, track_path=None):
     """`cli/race.main` for one method on the card (float32, fused), its
-    output kept apart: (result, wall s, launches, L-BFGS iterations of each
-    minimisation, the largest over its instances, graph captures)."""
+    output kept apart, on buckmore or the track JSON at `track_path`:
+    (result, wall s, launches, L-BFGS iterations of each minimisation, the
+    largest over its instances, graph captures)."""
     from lap_time_optimization_tpu_torch.cli import race
     from lap_time_optimization_tpu_torch.ops import optimize
 
@@ -332,7 +382,7 @@ def run_race(method, vehicle, width, out_dir):
             return res
         return run
 
-    argv = [os.path.join(ROOT, "data", "tracks", "buckmore.json"),
+    argv = [track_path or os.path.join(ROOT, "data", "tracks", "buckmore.json"),
             os.path.join(ROOT, "data", "vehicles", f"{vehicle}.json"), str(width), f"--{method}",
             "--device", "cuda", "--dtype", "float32", "--solver", "fused", "--output-dir", out_dir]
     for name, orig in origs.items():
@@ -809,12 +859,344 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     return launches, k3_launches, out
 
 
+def np_sqrt(x):
+    """numpy's square root of a CPU tensor: correctly rounded, as the card's
+    is (`ops.velocity_batch.solve_profile_batch_reference`'s `sqrt`)."""
+    return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+
+
+def write_track_json(path, name, left, right):
+    """A track JSON of cones (left, right), each (2, n), as data/tracks has."""
+    with open(path, "w") as fh:
+        json.dump({"name": name, "left": {"x": left[0].tolist(), "y": left[1].tolist()},
+                   "right": {"x": right[0].tolist(), "y": right[1].tolist()}}, fh)
+
+
+def phase_long_tracks(device, cfg, conf, x0b_np):
+    """Phase 10: both kernels past their shared-memory ceilings through the
+    entry points (see the module docstring).  Returns (solve-kernel
+    launches, kernel-3 launches) of its driven paths, its readings, the
+    long selections' kernel-3 inputs by dtype (timed in phase 12) and the
+    largest float32 |kernel - plain|."""
+    from lap_time_optimization_tpu_torch.models import load_vehicle
+    from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
+    from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.mpc import track as mpc_track
+    from lap_time_optimization_tpu_torch.mpc.solver import OCPParams
+    from lap_time_optimization_tpu_torch.ops import ilqr, spline, velocity
+    from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
+    from lap_time_optimization_tpu_torch.optim import global_search as gs
+    from lap_time_optimization_tpu_torch.optim import racing_line as rl
+    from lap_time_optimization_tpu_torch.track import Track, synthetic_circuit
+
+    t_phase = time.perf_counter()
+    solve_n, k3_n, out, worst = 0, 0, {}, 0.0
+    L = cfg.n_linesearch
+
+    # (a) the solve kernel's placements at buckmore's 846 samples: the
+    # wrapper keeps the table in shared memory, and the same launch with
+    # the table in global memory gives the same bits
+    for dtype in (torch.float64, torch.float32):
+        model, p = load_main_path(device, dtype)
+        pk = ilqr.pack(model, p, cfg)
+        n = pk.tables.shape[-1]
+        for name, x0, seed in (("B=1", runner.X0_REFERENCE, 1), (f"B={BATCH}", fleet_states(model.track, BATCH), 3)):
+            sargs = solve_inputs(model, cfg, x0, 2.0, seed)
+            where = ilqr.placement(dtype, min(ilqr.WARPS, 1 if x0.ndim == 1 else BATCH), cfg.horizon, L, 14, n)
+            shared = ilqr._launch(cfg, *sargs, pk)
+            forced = ilqr._launch(cfg, *sargs, pk, force_global=True)
+            same = all(torch.equal(a, b) for a, b in zip(forced, shared))
+            print(f"solve kernel {str(dtype)[6:]} {name} n={n}: the wrapper's (OCPs per block, table in global "
+                  f"memory) {where}; the table forced into global memory: bit-equal {same}")
+            if where[1] or not same:
+                raise AssertionError(f"solve kernel {name}: placement {where}, forced global bit-equal {same}")
+            if dtype == torch.float32 and x0.ndim == 1:
+                out["solve_846_ms"] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk), 20)
+                out["solve_846_global_ms"] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, force_global=True), 20)
+    print(f"solve kernel B=1 n=846 f32: shared table {out['solve_846_ms']:.4f} ms, forced global "
+          f"{out['solve_846_global_ms']:.4f} ms per call (CUDA events)")
+
+    # (b) the NMPC single stream on the shipped MX-5 curvature artifacts
+    # resampled to the Nordschleife's metre count: the table's length, not
+    # its spacing, sets the ceiling
+    t0 = time.perf_counter()
+    ltrack = mpc_track.load("MX-5", "buckmore", "curvature", base_dir=os.path.join(ROOT, "data"),
+                            n_samples=LONG_NS)
+    print(f"long NMPC table: {LONG_NS} samples over {float(ltrack.s_max):.1f} m "
+          f"({float(ltrack.s_max) / (LONG_NS - 1) * 100:.2f} cm apart), built in {time.perf_counter() - t0:.2f} s")
+    x_mid = np.array([430.0, *runner.X0_REFERENCE[1:]])
+    models = {}
+    for dtype in (torch.float64, torch.float32):
+        lmodel = BicycleModel(load_vehicle("MX5"), copy.deepcopy(ltrack)).to(device, dtype)
+        lp = OCPParams.reference(dtype, device, lateral_margin=0.05)
+        pk = ilqr.pack(lmodel, lp, cfg)
+        models[dtype] = (lmodel, lp, pk)
+        where = ilqr.placement(dtype, 1, cfg.horizon, L, 14, LONG_NS)
+        sargs = solve_inputs(lmodel, cfg, x_mid, 2.0, 1)
+        got = ilqr.solve(lmodel, lp, cfg, *sargs, pk)
+        ref = ilqr.solve_reference(lmodel, lp, cfg, *sargs, pk)
+        err = check_solve(f"solve kernel vs plain {str(dtype)[6:]} B=1 s0=430 n={LONG_NS} (placement {where})",
+                          got, ref, dtype)
+        if not where[1]:
+            raise AssertionError(f"the {LONG_NS}-sample table took placement {where}")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        # the global placement's ceiling: one OCP's slice in shared memory
+        top = max(N for N in range(1, 1000) if ilqr.smem_bytes(dtype, 1, N, L, 14, LONG_NS, True))
+        cfg_top = dataclasses.replace(cfg, horizon=top)
+        pk_top = ilqr.pack(lmodel, lp, cfg_top)
+        outs = ilqr.solve(lmodel, lp, cfg_top, *solve_inputs(lmodel, cfg_top, runner.X0_REFERENCE, 0.0, 3), pk_top)
+        try:
+            ilqr.placement(dtype, 1, top + 1, L, 14, LONG_NS)
+            refused = False
+        except ValueError:
+            refused = True
+        print(f"  the horizon ceiling in {str(dtype)[6:]} (L={L}, 14 rows, table in global memory): N={top} runs "
+              f"({ilqr.smem_bytes(dtype, 1, top, L, 14, LONG_NS, True)} B of shared memory; cost "
+              f"{float(outs[3]):.3f}, outputs finite {all(bool(torch.isfinite(o).all()) for o in outs)}); N={top + 1} "
+              f"refused: {refused}")
+        if not refused:
+            raise AssertionError(f"horizon {top + 1} was not refused")
+        out[f"top_{str(dtype)[6:]}"] = top
+    lmodel, lp, pk = models[torch.float32]
+    x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device=device)
+    runner.closed_loop(lmodel, lp, cfg, x0, 3)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sim = runner.closed_loop(lmodel, lp, cfg, x0, LONG_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    xs = sim.xs.cpu().numpy()
+    applied = runner.applied_violation(lmodel, lp, sim)
+    print(f"closed loop on the {LONG_NS}-sample table: {LONG_STEPS} steps f32 in {wall:.3f} s = "
+          f"{LONG_STEPS / wall:.2f} Hz; progress {xs[-1, 0]:.2f} m; applied violation {applied:.3e} (JAX pairing, "
+          f"gated < 1e-2; with the state each input was applied from "
+          f"{runner.applied_violation(lmodel, lp, sim, pairing='applied'):.3e}); predicted violation over the first "
+          f"{PREDICTED_WINDOW} cycles {float(sim.violations[:PREDICTED_WINDOW].max()):.3e}; launches {counts}")
+    if counts != (LONG_STEPS + 2, 0):
+        raise AssertionError(f"long-table closed loop launches {counts}, expected ({LONG_STEPS + 2}, 0)")
+    if not (np.all(np.isfinite(xs)) and np.all(np.diff(xs[:, 0]) > 0) and applied < 1e-2):
+        raise AssertionError("the closed loop on the long table fails its gates")
+    solve_n += counts[0]
+    out["long_hz"] = LONG_STEPS / wall
+
+    # (c) the fleet on the same table, gated on the instances the JAX
+    # package keeps in the band there (fault R2)
+    x0b = torch.as_tensor(x0b_np, dtype=torch.float32, device=device)
+    runner.closed_loop_batch(lmodel, lp, cfg, x0b, 2)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fleet = runner.closed_loop_batch(lmodel, lp, cfg, x0b, LONG_FLEET_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    bxs = fleet.xs.cpu().numpy()
+    per = [runner.applied_violation(lmodel, lp, runner.SimResult(*(a[b] for a in fleet))) for b in range(BATCH)]
+    monotone = np.all(np.diff(bxs[:, :, 0], axis=1) > 0, axis=1)
+    print(f"fleet on the {LONG_NS}-sample table: {BATCH} loops x {LONG_FLEET_STEPS} steps f32 in {wall:.3f} s = "
+          f"{BATCH * LONG_FLEET_STEPS / wall:.1f} solves/s; applied violation, worst of instances "
+          f"0-{LONG_FLEET_IN_BAND - 1} {max(per[:LONG_FLEET_IN_BAND]):.3e} (gated), instances "
+          f"{LONG_FLEET_IN_BAND}-{BATCH - 1} {[round(v, 4) for v in per[LONG_FLEET_IN_BAND:]]}; progress not "
+          f"monotone on instances {np.flatnonzero(~monotone).tolist()}; launches {counts}")
+    if counts != (LONG_FLEET_STEPS + 2, 0):
+        raise AssertionError(f"long-table fleet launches {counts}, expected ({LONG_FLEET_STEPS + 2}, 0)")
+    if not (np.all(np.isfinite(bxs)) and np.all(monotone[:LONG_FLEET_IN_BAND])
+            and max(per[:LONG_FLEET_IN_BAND]) < 1e-2):
+        raise AssertionError("the fleet on the long table fails its gates")
+    solve_n += counts[0]
+
+    # the solve kernel's time on the long table (global placement) beside
+    # the shared placement's at buckmore's size, CUDA events
+    bmodel, bp = load_main_path(device, torch.float32)
+    bpk = ilqr.pack(bmodel, bp, cfg)
+    for B in (1, BATCH):
+        x0s = runner.X0_REFERENCE if B == 1 else fleet_states(lmodel.track, B)
+        sargs = solve_inputs(lmodel, cfg, x0s, 0.0 if B == 1 else 2.0, 3)
+        bargs = solve_inputs(bmodel, cfg, runner.X0_REFERENCE if B == 1 else fleet_states(bmodel.track, B),
+                             0.0 if B == 1 else 2.0, 3)
+        out[f"long_solve_ms_{B}"] = cuda_ms(lambda: ilqr.solve(lmodel, lp, cfg, *sargs, pk), 20)
+        short_ms = cuda_ms(lambda: ilqr.solve(bmodel, bp, cfg, *bargs, bpk), 20)
+        outs = ilqr.solve(lmodel, lp, cfg, *sargs, pk)
+        out[f"long_solve_bound_{B}"] = bound_ms(nbytes(*sargs, *pk, *outs), B * solve_flops(cfg))
+        print(f"solve kernel per call at B={B} f32, table in global memory n={LONG_NS}: "
+              f"{out[f'long_solve_ms_{B}']:.4f} ms (placement {ilqr.placement(torch.float32, min(ilqr.WARPS, B), 10, L, 14, LONG_NS)}); "
+              f"shared placement n=846: {short_ms:.4f} ms; bound {out[f'long_solve_bound_{B}'][0] * 1e3:.4f} us "
+              f"({out[f'long_solve_bound_{B}'][1]})")
+
+    # (d) kernel 3's placements on the tbr18 buckmore rows of phase 11
+    n_dec = search_setup("cpu", torch.float64)[0].n_decongested
+    alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
+    for dtype in (torch.float64, torch.float32):
+        track, tbr18, mx5 = search_setup(device, dtype)
+        with torch.no_grad():
+            s_b, k_b, len_b = gs._geometry(track, torch.as_tensor(alphas_np, dtype=dtype, device=device),
+                                           spline.FIT_METHOD_CLOSED_BATCHED)
+        s_n = s_b[:, :-1]
+        same = True
+        for veh in (tbr18, mx5):
+            for closed, n in ((True, k_b.shape[1]), (False, 300)):
+                kn = k_b[:, :n].contiguous()
+                for P in K3_SEGMENTS:
+                    shared = vb._launch(veh, s_n[:, :n], kn, len_b, closed, segments=P)
+                    forced = vb._launch(veh, s_n[:, :n], kn, len_b, closed, segments=P, force_global=True)
+                    same = same and torch.equal(forced, shared)
+        print(f"kernel 3 {str(dtype)[6:]} B={K3_BATCH} N={k_b.shape[1]} (closed) and 300 (open), tbr18 and MX5, "
+              f"P = {K3_SEGMENTS}: shared memory per block {vb.smem_bytes(dtype, 4, k_b.shape[1])} B at W=4; the "
+              f"arrays forced into the global scratch: bit-equal {same}")
+        if not same:
+            raise AssertionError("kernel 3's global scratch differs from its shared placement")
+
+    # (e) the nonlinear search's selection on seeded synthetic circuits of
+    # the Nordschleife's and Spa's lengths, held against the twin on the CPU;
+    # (f) --curvature through the CLI on the 20 km circuit
+    long_k3 = {}
+    nl = conf.nonlinear
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for ns, dtype in ((LONG_NS, torch.float32), (SPA_NS, torch.float64)):
+            left, right = synthetic_circuit(ns, seed=0)
+            paths[ns] = os.path.join(tmp, f"synthetic{ns}.json")
+            write_track_json(paths[ns], f"synthetic{ns}", left, right)
+            strack = Track.load(paths[ns], WIDTH).to(device, dtype)
+            veh = load_vehicle("tbr18").to(device, dtype)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(0)
+            cands = gs._uniform(gen, (nl.n_random, strack.n_decongested), strack)
+            gs._nonlinear_select(strack, veh, cands, nl.n_refine, "fused")  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            times = gs._nonlinear_select(strack, veh, cands, nl.n_refine, "fused")[0]
+            torch.cuda.synchronize()
+            sel_s = time.perf_counter() - t0
+            counts = read_counts()
+            with torch.no_grad():
+                s_b, k_b, len_b = gs._geometry(strack, cands, spline.FIT_METHOD_CLOSED_BATCHED)
+            s_n = s_b[:, :-1]
+            v = vb.solve_profile_batch(veh, s_n, k_b, len_b, True)
+            t0 = time.perf_counter()
+            ref = vb.solve_profile_batch_reference(load_vehicle("tbr18").to("cpu", dtype), s_n[:LONG_ROWS].cpu(),
+                                                   k_b[:LONG_ROWS].cpu(), len_b[:LONG_ROWS].cpu(), True, sqrt=np_sqrt)
+            twin_s = time.perf_counter() - t0
+            got = v[:LONG_ROWS].cpu()
+            fin = torch.isfinite(ref)
+            d = (got - ref).abs()[fin]
+            rel = float((d / ref.abs()[fin].clamp(min=1.0)).max())
+            nan_same = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
+            lap_d = float((velocity.lap_time(s_b, v) - times).abs().max())
+            dt = str(dtype)[6:]
+            print(f"nonlinear selection on the {ns - 1} m synthetic circuit ({strack.size} cone pairs, width {WIDTH}), "
+                  f"tbr18 {dt}: {nl.n_random} candidates in {1e3 * sel_s:.2f} ms = {nl.n_random / sel_s:.0f} "
+                  f"candidates/s; best {float(times.min()):.3f} s, {int(torch.isinf(times).sum())} non-finite; "
+                  f"launches {counts}; kernel 3 at B={nl.n_random} N={k_b.shape[1]} (shared memory per block at W=1: "
+                  f"{vb.smem_bytes(dtype, 1, k_b.shape[1])} B, so the global scratch) vs the twin on the CPU on "
+                  f"{LONG_ROWS} rows ({twin_s:.1f} s): max |d|/max(1,|ref|) {rel:.3e} (tol {K3_TOL[dtype]:g}), "
+                  f"bit-equal {torch.equal(got, ref)}, NaN positions equal {nan_same}; its laps vs the selection's "
+                  f"max |d| {lap_d:.3e} s")
+            if counts != (0, 1):
+                raise AssertionError(f"long selection launches {counts}, expected (0, 1)")
+            if not (rel <= K3_TOL[dtype] and nan_same and got.shape == ref.shape):
+                raise AssertionError(f"kernel 3 disagrees with its twin on the {ns - 1} m circuit")
+            if dtype == torch.float32:
+                worst = max(worst, float(d.max()) if d.numel() else 0.0)
+            k3_n += counts[1]
+            long_k3[dtype] = (veh, s_n, k_b, len_b)
+            out[f"selection_ms_{ns}"] = 1e3 * sel_s
+
+        res, wall, counts, iters, captures = run_race("curvature", "tbr18", WIDTH, os.path.join(tmp, "race"),
+                                                      track_path=paths[LONG_NS])
+        strack = Track.load(paths[LONG_NS], WIDTH).to(device, torch.float32)
+        veh = load_vehicle("tbr18").to(device, torch.float32)
+        x = torch.as_tensor(res["alphas"], dtype=torch.float32, device=device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            scan = float(rl.evaluate(strack, veh, x, "scan")[0])
+        scan_s = time.perf_counter() - t0
+        rel = abs(res["lap_time"] - scan) / scan
+        print(f"race --curvature on the {LONG_NS - 1} m synthetic circuit (tbr18, width {WIDTH}, f32, fused): "
+              f"{wall:.2f} s; L-BFGS iterations {iters}; graph captures {captures}; CLI lap {res['lap_time']:.4f} s "
+              f"(kernel 3), scan-oracle lap of the same line {scan:.4f} s ({scan_s:.1f} s): |d|/scan {rel:.3e} "
+              f"(tol {LONG_LAP_RTOL:g}); launches {counts}")
+        if counts != (0, 1):
+            raise AssertionError(f"long --curvature launches {counts}, expected (0, 1)")
+        if not (np.isfinite(scan) and rel <= LONG_LAP_RTOL):
+            raise AssertionError("the long --curvature lap disagrees with the scan oracle")
+        k3_n += counts[1]
+        out["race_s"] = wall
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 10: {out['phase_s']:.1f} s")
+    return solve_n, k3_n, out, long_k3, worst
+
+
+def fingerprint(device) -> dict:
+    """SHA-256 of both kernels' outputs through their wrappers on phase 3's
+    solve inputs (three single states and 32 over the lap, three model
+    variants, f64 and f32) and on the 1024 tbr18 buckmore lines of phase 11
+    (tbr18 and MX5, closed and the first 300 samples open, f64 and f32),
+    with hashes of those inputs, and the kernels' times at the main paths'
+    shapes: the solve kernel per call at B = 1 and 32 (CUDA events) and
+    kernel 3 at B=1024 (device time).  Only public entry points that every
+    slice of the port has are used, so the same script run beside an
+    earlier tree shows whether a change kept the kernels' bits."""
+    import hashlib
+
+    from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.mpc.solver import SolverConfig
+    from lap_time_optimization_tpu_torch.ops import ilqr, spline
+    from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
+    from lap_time_optimization_tpu_torch.optim import global_search as gs
+
+    digest = {name: hashlib.sha256() for name in ("solve_in", "solve_out", "k3_in", "k3_out")}
+    feed = lambda name, *ts: [digest[name].update(t.detach().cpu().contiguous().numpy().tobytes()) for t in ts]
+    cfg = SolverConfig(horizon=10)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for tv, te in ((False, False), (False, True), (True, False)):
+            model, p = load_main_path(device, dtype, tv, te)
+            pk = ilqr.pack(model, p, cfg)
+            cases = [(np.array([s0, *runner.X0_REFERENCE[1:]]), lam, seed)
+                     for s0, lam, seed in ((0.0, 0.0, 0), (430.0, 2.0, 1), (855.0, 5.0, 2))]
+            cases.append((fleet_states(model.track, BATCH), 2.0, 3))
+            for x0, lam, seed in cases:
+                sargs = solve_inputs(model, cfg, x0, lam, seed)
+                feed("solve_in", *sargs, *pk)
+                feed("solve_out", *ilqr.solve(model, p, cfg, *sargs, pk))
+            if dtype == torch.float32 and not (tv or te):
+                for B in (1, BATCH):
+                    sargs = solve_inputs(model, cfg, runner.X0_REFERENCE if B == 1 else fleet_states(model.track, B),
+                                         0.0 if B == 1 else 2.0, 3)
+                    out[f"solve_ms_B{B}"] = cuda_ms(lambda: ilqr.solve(model, p, cfg, *sargs, pk), 20)
+    n_dec = search_setup("cpu", torch.float64)[0].n_decongested
+    alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
+    for dtype in (torch.float64, torch.float32):
+        track, tbr18, mx5 = search_setup(device, dtype)
+        with torch.no_grad():
+            s_b, k_b, len_b = gs._geometry(track, torch.as_tensor(alphas_np, dtype=dtype, device=device),
+                                           spline.FIT_METHOD_CLOSED_BATCHED)
+        s_n = s_b[:, :-1]
+        feed("k3_in", s_n, k_b, len_b)
+        for veh in (tbr18, mx5):
+            feed("k3_out", vb.solve_profile_batch(veh, s_n, k_b, len_b, True),
+                 vb.solve_profile_batch(veh, s_n[:, :300], k_b[:, :300].contiguous(), len_b, False))
+        if dtype == torch.float32:
+            out["k3_ms_B1024"] = device_ms(lambda: vb.solve_profile_batch(tbr18, s_n, k_b, len_b, True), 50,
+                                           "velocity_profile_batch_kernel")
+    out.update({name: h.hexdigest()[:16] for name, h in digest.items()})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=500,
                     help="timed single-stream control cycles; the fleet runs max(10, steps // 5)")
     ap.add_argument("--profile", type=str, default=None,
                     help="directory for torch.profiler summaries of 3 control cycles of each loop")
+    ap.add_argument("--fingerprint", action="store_true",
+                    help="print only the kernels' output hashes and times at the main paths' shapes "
+                         "(`fingerprint`), to hold two trees against each other, and exit")
     args = ap.parse_args(argv)
 
     # ---------------------------------------------------------------- phase 1
@@ -822,6 +1204,11 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.fingerprint:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        print(f"card: {nvidia_smi()}")
+        print(json.dumps({"fingerprint": fingerprint(torch.device("cuda", 0)), "root": ROOT}))
+        return 0
     from lap_time_optimization_tpu_torch.models import load_vehicle
     from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
     from lap_time_optimization_tpu_torch.mpc import runner
@@ -1147,6 +1534,10 @@ def main(argv=None) -> int:
     p9_solve, p9_k3, _ = phase_parallel(device, x0b_np, nl, best_x, best_f)
 
     # ---------------------------------------------------------------- phase 10
+    p10_solve, p10_k3, _, long_k3, p10_worst = phase_long_tracks(device, cfg, conf, x0b_np)
+    worst_f32_abs = max(worst_f32_abs, p10_worst)
+
+    # ---------------------------------------------------------------- phase 11
     # Kernel 3's checks and timings come after every driven path, so that the
     # paths run in a fresh process: a profiler session leaves the process's
     # later launches slower (the NMPC loops read 11-20% lower on one card
@@ -1154,7 +1545,7 @@ def main(argv=None) -> int:
     n_dec = search_setup("cpu", torch.float64)[0].n_decongested
     alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
     worst_k3_abs = 0.0
-    k3_inputs = {}  # dtype -> (tbr18, s, k, s_max) of the 1024 lines, timed in phase 11
+    k3_inputs = {}  # dtype -> (tbr18, s, k, s_max) of the 1024 lines, timed in phase 12
     for dtype in (torch.float64, torch.float32):
         track, tbr18, mx5 = search_setup(device, dtype)
         alphas = torch.as_tensor(alphas_np, dtype=dtype, device=device)
@@ -1192,7 +1583,7 @@ def main(argv=None) -> int:
             if not rel <= LAP_TOL_F64:
                 raise AssertionError("fused lap times on the card disagree with the CPU")
 
-    # ---------------------------------------------------------------- phase 11
+    # ---------------------------------------------------------------- phase 12
     kname = "velocity_profile_batch_kernel"
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     k3_dev = {}
@@ -1218,22 +1609,34 @@ def main(argv=None) -> int:
     print(f"kernel 3 at B={K3_BATCH} N={n_samp} f32 tbr18 closed: kernel {k3_ms:.4f} ms (device time), "
           f"{k3_call_ms:.4f} ms per wrapper call (CUDA events, host included), twin {k3_twin_ms:.4f} ms, "
           f"bound {k3_bound[0] * 1e3:.3f} us ({k3_bound[1]})")
+    # the global scratch at buckmore's size, and the long selections of
+    # phase 10 (global scratch), beside the shared placement
+    k3_global_ms = device_ms(lambda: vb._launch(veh, s_n, k_b, len_b, True, force_global=True), 50, kname)
+    print(f"kernel 3 at B={K3_BATCH} N={n_samp} f32 tbr18 closed with its arrays forced into the global scratch: "
+          f"{k3_global_ms:.4f} ms (device time; shared placement {k3_ms:.4f} ms)")
+    for dtype, (veh_l, s_l, k_l, len_l) in long_k3.items():
+        B_l, N_l = k_l.shape
+        t_l = device_ms(lambda: vb._launch(veh_l, s_l, k_l, len_l, True), 10, kname)
+        bound_l = bound_ms(nbytes(s_l, k_l, len_l, k_l), velocity_flops(B_l, N_l, False))
+        print(f"kernel 3 device time per launch at B={B_l} N={N_l} {str(dtype)[6:]} tbr18 closed, global scratch "
+              f"(W={vb.warps_for(B_l, n_sm)}, P={vb.SEGMENTS}): {t_l:.4f} ms; at N={n_samp} in shared memory "
+              f"{k3_dev[dtype, K3_BATCH, vb.SEGMENTS]:.4f} ms; bound {bound_l[0] * 1e3:.3f} us ({bound_l[1]})")
     if args.profile:
         profile_cycles(lambda n: runner.closed_loop(model, p, cfg, x0, n), "closed_loop",
                        "ilqr_solve_kernel", args.profile, 1e3 * wall / args.steps)
         profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
                        "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
 
-    # ---------------------------------------------------------------- phase 12
+    # ---------------------------------------------------------------- phase 13
     print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}, "
-          f"phase 9 {p9_solve}")
+          f"phase 9 {p9_solve}, phase 10 {p10_solve}; kernel-3 launches in phase 10 {p10_k3}")
     print(json.dumps({"kernels": [{
         "name": "ilqr_solve",
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr.py:471 and "
                     "lap_time_optimization_tpu/ops/pallas_ilqr_batch.py:444",
-        "launches": launches + batch_launches + p9_solve,
+        "launches": launches + batch_launches + p9_solve + p10_solve,
         "max_abs_err": worst_f32_abs,
         "ms": solve_ms[1, 1],  # the wrapper launches one warp at B=1
         "plain_ms": plain_ms[1],
@@ -1245,7 +1648,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/velocity.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_velocity.py:229",
-        "launches": nl_counts[1] + bo_counts[1] + again_counts[1] + race_k3 + p9_k3,
+        "launches": nl_counts[1] + bo_counts[1] + again_counts[1] + race_k3 + p9_k3 + p10_k3,
         "max_abs_err": worst_k3_abs,
         "ms": k3_ms,
         "plain_ms": k3_twin_ms,

@@ -61,16 +61,25 @@
 //    MPCTrack._uinterp_d (half on a grid point), the vx floor gate (1, 1/2
 //    on it, 0 below), sign(mu) as +1 at 0; NaN costs count as +inf in the
 //    rung choice, new_cost < cost is false for NaN, max(0, x) keeps NaN.
-// Shared memory: the table and scalars, plus W slices of solve_slice_elems()
-// elements (~4,200 at N=10, L=6, 16 rows: 16.9 KB in f32, 33.8 KB in f64).
-// The launch raises the dynamic limit above 48 KB and refuses sizes past the
-// 227 KB a block can hold.
+// Shared memory: the scalars, W slices of solve_slice_elems() elements
+// (~4,200 at N=10, L=6, 16 rows: 16.9 KB in f32, 33.8 KB in f64) and, where
+// it fits beside them, the (4, n) table (the shared placement).  A longer
+// table stays in global memory (the global placement: 333 KB at n = 20,832
+// in f32, which the 50 MB L2 holds), read through the kernel's const
+// __restrict__ argument; the kernel is a template on the placement whose
+// only difference is where the table pointer points, so the two placements
+// run the same device functions on the same values.  The
+// launch raises the dynamic limit above 48 KB and refuses sizes past the
+// 227 KB a block can hold: with the global placement only the horizon and
+// the ladder bound that (one slice at L=6, 14 rows: N <= 160 in f32, 79
+// in f64).
 //
 // C interface (one entry point per type): every pointer is a contiguous
 // device buffer in the layouts of ops/ilqr.py::solve (a leading instance
-// axis B); the launch goes onto `stream`, allocates nothing and returns
-// cudaGetLastError().  lto_ilqr_solve_smem_bytes gives the dynamic shared
-// memory of a launch, or 0 for sizes the kernel does not take.
+// axis B); `global_table` picks the placement; the launch goes onto
+// `stream`, allocates nothing and returns cudaGetLastError().
+// lto_ilqr_solve_smem_bytes gives the dynamic shared memory of a launch, or
+// 0 for sizes the kernel does not take.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -782,7 +791,8 @@ __device__ void riccati(Slice<T>& S, int N, T reg, int lane) {
 }
 
 // The whole solve for B instances, one warp each (see the note at the top).
-template <typename T>
+// GTAB: the table stays in global memory (the global placement).
+template <typename T, bool GTAB>
 __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
     const T* __restrict__ z0, const T* __restrict__ us_init, const T* __restrict__ lam_init,
     const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
@@ -791,15 +801,18 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
     int n, int substeps, int al_iters, int ilqr_iters, T rho_init, T rho_scale, T reg_init) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sc = reinterpret_cast<T*>(smem_raw);
-  T* tab = sc + NS;
+  T* tab_s = sc + NS;
   for (int i = threadIdx.x; i < NS; i += blockDim.x) sc[i] = scal[i];
-  for (int i = threadIdx.x; i < 4 * n; i += blockDim.x) tab[i] = tables[i];
+  if (!GTAB)
+    for (int i = threadIdx.x; i < 4 * n; i += blockDim.x) tab_s[i] = tables[i];
   __syncthreads();
+  const T* tab = GTAB ? tables : tab_s;
 
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const int b = blockIdx.x * W + warp;
   if (b >= Bt) return;  // no block-wide barrier follows
-  Slice<T> S(tab + 4 * n + (size_t)warp * solve_slice_elems(N, L, n_con), N, L, n_con);
+  T* slices = GTAB ? tab_s : tab_s + 4 * n;
+  Slice<T> S(slices + (size_t)warp * solve_slice_elems(N, L, n_con), N, L, n_con);
   const int Np = N + 1;
 
   // inputs and the rollout of us_init
@@ -936,15 +949,17 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
   }
 }
 
-// Dynamic shared memory of one block of W instances, or 0 if the sizes are
-// not ones the kernel takes.
+// Dynamic shared memory of one block of W instances with the table in
+// shared (gtab = 0) or global memory, or 0 if the sizes are not ones the
+// kernel takes.
 template <typename T>
-size_t solve_smem_bytes(int W, int N, int L, int n_con, int n) {
+size_t solve_smem_bytes(int W, int N, int L, int n_con, int n, int gtab) {
   if (W < 1 || W > MAX_WARPS || N < 1 || L < 1 || L > WARP || n < 2 ||
       (n_con != N_CON && n_con != N_CON + 2)) {
     return 0;
   }
-  const size_t bytes = (NS + 4 * (size_t)n + W * solve_slice_elems(N, L, n_con)) * sizeof(T);
+  const size_t table = gtab ? 0 : 4 * (size_t)n;
+  const size_t bytes = (NS + table + W * solve_slice_elems(N, L, n_con)) * sizeof(T);
   return bytes <= MAX_SMEM ? bytes : 0;
 }
 
@@ -960,16 +975,17 @@ template <typename T>
 int launch_solve(const T* z0, const T* us_init, const T* lam_init, const T* tables,
                  const T* alphas, const T* scal, T* us_out, T* zs_out, T* lam_out, T* cost_out,
                  T* viol_out, int Bt, int W, int N, int L, int n_con, int n, int substeps,
-                 int al_iters, int ilqr_iters, double rho_init, double rho_scale, double reg_init,
-                 void* stream) {
-  const size_t bytes = solve_smem_bytes<T>(W, N, L, n_con, n);
+                 int al_iters, int ilqr_iters, int gtab, double rho_init, double rho_scale,
+                 double reg_init, void* stream) {
+  const size_t bytes = solve_smem_bytes<T>(W, N, L, n_con, n, gtab);
   if (bytes == 0 || Bt < 1 || substeps < 1 || al_iters < 0 || ilqr_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = allow_smem(ilqr_solve_kernel<T>, bytes);
+  auto kernel = gtab ? ilqr_solve_kernel<T, true> : ilqr_solve_kernel<T, false>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (Bt + W - 1) / W;
-  ilqr_solve_kernel<T><<<grid, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out, cost_out, viol_out, Bt, W, N, L, n_con, n, substeps, al_iters, ilqr_iters, T(rho_init), T(rho_scale), T(reg_init));
+  kernel<<<grid, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out, cost_out, viol_out, Bt, W, N, L, n_con, n, substeps, al_iters, ilqr_iters, T(rho_init), T(rho_scale), T(reg_init));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -979,11 +995,12 @@ extern "C" int lto_ilqr_solve_f32(const float* z0, const float* us_init, const f
                                   const float* tables, const float* alphas, const float* scal,
                                   float* us_out, float* zs_out, float* lam_out, float* cost_out,
                                   float* viol_out, int Bt, int W, int N, int L, int n_con, int n,
-                                  int substeps, int al_iters, int ilqr_iters, double rho_init,
-                                  double rho_scale, double reg_init, void* stream) {
+                                  int substeps, int al_iters, int ilqr_iters, int global_table,
+                                  double rho_init, double rho_scale, double reg_init,
+                                  void* stream) {
   return launch_solve<float>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out,
                              cost_out, viol_out, Bt, W, N, L, n_con, n, substeps, al_iters,
-                             ilqr_iters, rho_init, rho_scale, reg_init, stream);
+                             ilqr_iters, global_table, rho_init, rho_scale, reg_init, stream);
 }
 
 extern "C" int lto_ilqr_solve_f64(const double* z0, const double* us_init,
@@ -991,17 +1008,21 @@ extern "C" int lto_ilqr_solve_f64(const double* z0, const double* us_init,
                                   const double* alphas, const double* scal, double* us_out,
                                   double* zs_out, double* lam_out, double* cost_out,
                                   double* viol_out, int Bt, int W, int N, int L, int n_con, int n,
-                                  int substeps, int al_iters, int ilqr_iters, double rho_init,
-                                  double rho_scale, double reg_init, void* stream) {
+                                  int substeps, int al_iters, int ilqr_iters, int global_table,
+                                  double rho_init, double rho_scale, double reg_init,
+                                  void* stream) {
   return launch_solve<double>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out,
                               lam_out, cost_out, viol_out, Bt, W, N, L, n_con, n, substeps,
-                              al_iters, ilqr_iters, rho_init, rho_scale, reg_init, stream);
+                              al_iters, ilqr_iters, global_table, rho_init, rho_scale, reg_init,
+                              stream);
 }
 
-// Dynamic shared memory of a launch (element size 4 or 8), 0 if refused.
+// Dynamic shared memory of a launch (element size 4 or 8) with the table in
+// shared (global_table = 0) or global memory, 0 if refused.
 extern "C" long long lto_ilqr_solve_smem_bytes(int elem_size, int W, int N, int L, int n_con,
-                                               int n) {
-  const size_t bytes = elem_size == 8 ? solve_smem_bytes<double>(W, N, L, n_con, n)
-                                      : solve_smem_bytes<float>(W, N, L, n_con, n);
+                                               int n, int global_table) {
+  const size_t bytes = elem_size == 8
+                           ? solve_smem_bytes<double>(W, N, L, n_con, n, global_table)
+                           : solve_smem_bytes<float>(W, N, L, n_con, n, global_table);
   return static_cast<long long>(bytes);
 }

@@ -30,9 +30,10 @@
 // step) times the longest chain a candidate needs, plus the prologue.
 //
 // Design (one warp per candidate, W = 1, 2 or 4 candidates per block):
-//  * Prologue: the warp copies its rows of s and k into shared memory with
-//    coalesced loads, every load of a lane in flight before the first is
-//    used (one round trip to memory for N <= 1024 in float32), and computes
+//  * Prologue: the warp copies its rows of s and k into shared memory (or
+//    the global scratch, see Placement) with coalesced loads, every load of
+//    a lane in flight before the first is used (one round trip to memory
+//    for N <= 1024 in float32), and computes
 //    three streams once per sample, all lanes in parallel: v_loc, ds (with
 //    jmod, so any s is exact) and the curvature itself.  The braking sweep
 //    reads the same arrays at j+1: nothing is flipped or rolled.  A warp
@@ -64,8 +65,13 @@
 //  * The step has no branch: the engine is a template parameter, the
 //    braking lanes carry an engine of +inf, and selects replace the
 //    where()s, so the engine's chain runs beside traction's.
-//  * Epilogue: out[j] = min(v_acc[j], v_dec[j]), coalesced; no global
-//    scratch.
+//  * Epilogue: out[j] = min(v_acc[j], v_dec[j]), coalesced.
+//  * Placement.  A candidate's five arrays of N (k, v_loc, ds, v_acc,
+//    v_dec) sit in shared memory where W = 1 fits (N <= 11,622 in float32,
+//    5,811 in float64); a longer lap keeps them in a global scratch of
+//    (B, 5, N) that the wrapper allocates, the same schedule on the same
+//    values (a template on the placement: the two give the same bits).
+//    __syncwarp orders the warp's global stores as it does its shared ones.
 //  * The streams and the epilogue take min/max with NaN winning, as
 //    torch.minimum/maximum do; inside the step plain fmin/fmax give the same
 //    output (see Vehicle).  Every product that feeds a sum is rounded on its
@@ -76,10 +82,13 @@
 // stride s_stride (0: one row shared), k (B, N) contiguous, s_max (B,) with
 // stride smax_stride (0: shared); params = (mass, f_cap, engine constant,
 // engine quadratic, mu g); engine = (4, 8) rows knot speeds, slopes, widths,
-// f0; W candidates per block, P segments per sweep.  The launch goes onto
+// f0; scratch (B, 5, N) for the global placement, or null for the shared
+// one; W candidates per block, P segments per sweep.  The launch goes onto
 // `stream`, allocates nothing and returns cudaGetLastError().
 // lto_velocity_profile_batch_smem_bytes gives a block's dynamic shared
-// memory, 0 where the sizes are refused.
+// memory in the shared placement, 0 where the sizes are refused.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -212,17 +221,19 @@ struct Segment {
   }
 };
 
-template <typename T, bool PACEJKA>
+// GLOBAL: the five arrays in `scratch` (the global placement).
+template <typename T, bool PACEJKA, bool GLOBAL>
 __global__ void __launch_bounds__(MAX_WARPS * WARP) velocity_profile_batch_kernel(
     const T* __restrict__ s, const T* __restrict__ k, const T* __restrict__ s_max,
-    const T* __restrict__ params, const T* __restrict__ engine, T* __restrict__ out, int B,
-    int N, int s_stride, int smax_stride, int closed, int P) {
+    const T* __restrict__ params, const T* __restrict__ engine, T* __restrict__ out,
+    T* scratch, int B, int N, int s_stride, int smax_stride, int closed, int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % WARP, w = threadIdx.x / WARP;
   const int row = blockIdx.x * (blockDim.x / WARP) + w;
   if (row >= B) return;  // the whole warp: nothing below syncs the block
 
-  T* k_s = reinterpret_cast<T*>(smem_raw) + (size_t)w * ARRAYS * N;
+  T* k_s = GLOBAL ? scratch + (long long)row * ARRAYS * N
+                  : reinterpret_cast<T*>(smem_raw) + (size_t)w * ARRAYS * N;
   T* v_loc = k_s + N;
   T* ds = v_loc + N;
   T* v_acc = ds + N;
@@ -343,21 +354,27 @@ size_t smem_bytes(int W, int N) {
 
 template <typename T>
 int launch(const T* s, const T* k, const T* s_max, const T* params, const T* engine, T* out,
-           int B, int N, int s_stride, int smax_stride, int closed, int pacejka, int W, int P,
-           void* stream) {
-  const size_t bytes = smem_bytes<T>(W, N);
-  if (bytes == 0 || B < 1 || P < 1 || P > MAX_SEGMENTS) {
+           T* scratch, int B, int N, int s_stride, int smax_stride, int closed, int pacejka,
+           int W, int P, void* stream) {
+  // the global placement needs no shared memory, only a row offset that fits
+  const bool global = scratch != nullptr;
+  const size_t bytes = global ? 0 : smem_bytes<T>(W, N);
+  const bool sizes = global ? W >= 1 && W <= MAX_WARPS && N >= 1 && N <= INT_MAX / ARRAYS
+                            : bytes != 0;
+  if (!sizes || B < 1 || P < 1 || P > MAX_SEGMENTS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = pacejka ? velocity_profile_batch_kernel<T, true>
-                        : velocity_profile_batch_kernel<T, false>;
+  auto kernel = global ? (pacejka ? velocity_profile_batch_kernel<T, true, true>
+                                  : velocity_profile_batch_kernel<T, false, true>)
+                       : (pacejka ? velocity_profile_batch_kernel<T, true, false>
+                                  : velocity_profile_batch_kernel<T, false, false>);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (B + W - 1) / W;
-  kernel<<<blocks, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(s, k, s_max, params, engine, out, B, N, s_stride, smax_stride, closed, P);
+  kernel<<<blocks, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(s, k, s_max, params, engine, out, scratch, B, N, s_stride, smax_stride, closed, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,24 +382,25 @@ int launch(const T* s, const T* k, const T* s_max, const T* params, const T* eng
 
 extern "C" int lto_velocity_profile_batch_f32(const float* s, const float* k, const float* s_max,
                                               const float* params, const float* engine,
-                                              float* out, int B, int N, int s_stride,
-                                              int smax_stride, int closed, int pacejka, int W,
-                                              int P, void* stream) {
-  return launch<float>(s, k, s_max, params, engine, out, B, N, s_stride, smax_stride, closed,
-                       pacejka, W, P, stream);
+                                              float* out, float* scratch, int B, int N,
+                                              int s_stride, int smax_stride, int closed,
+                                              int pacejka, int W, int P, void* stream) {
+  return launch<float>(s, k, s_max, params, engine, out, scratch, B, N, s_stride, smax_stride,
+                       closed, pacejka, W, P, stream);
 }
 
 extern "C" int lto_velocity_profile_batch_f64(const double* s, const double* k,
                                               const double* s_max, const double* params,
-                                              const double* engine, double* out, int B, int N,
-                                              int s_stride, int smax_stride, int closed,
-                                              int pacejka, int W, int P, void* stream) {
-  return launch<double>(s, k, s_max, params, engine, out, B, N, s_stride, smax_stride, closed,
-                        pacejka, W, P, stream);
+                                              const double* engine, double* out,
+                                              double* scratch, int B, int N, int s_stride,
+                                              int smax_stride, int closed, int pacejka, int W,
+                                              int P, void* stream) {
+  return launch<double>(s, k, s_max, params, engine, out, scratch, B, N, s_stride, smax_stride,
+                        closed, pacejka, W, P, stream);
 }
 
-// Dynamic shared memory of a block of W candidates (element size 4 or 8),
-// 0 if refused.
+// Dynamic shared memory of a block of W candidates in the shared placement
+// (element size 4 or 8), 0 if refused.
 extern "C" long long lto_velocity_profile_batch_smem_bytes(int elem_size, int W, int N) {
   return static_cast<long long>(elem_size == 8 ? smem_bytes<double>(W, N)
                                                : smem_bytes<float>(W, N));

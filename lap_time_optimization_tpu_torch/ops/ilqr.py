@@ -11,9 +11,13 @@ with its own Levenberg reg), and of the eager code around them in
   `ilqr_solve_kernel` (CUDA C++ for sm_90a, one warp per OCP; see the note
   at the top of that file), compiled with the port's other kernels by one
   `nvcc` call at first use (`ops/_build.py`) and called through ctypes on
-  PyTorch's current stream.  It raises if the kernel cannot be built or
-  launched, or does not take the sizes; there is no fallback.  CPU tensors
-  go to the plain version, `solve_reference`.
+  PyTorch's current stream.  The (4, n) table sits in shared memory where
+  it fits beside the OCPs' slices, and else in global memory (the same
+  arithmetic, so the same bits): any table length runs.  It raises if the
+  kernel cannot be built or launched, or does not take the sizes (one
+  OCP's slice must fit a block's shared memory: horizon ≤ 160 in float32
+  and ≤ 79 in float64 at 6 rungs); there is no fallback.  CPU tensors go
+  to the plain version, `solve_reference`.
 * `solve_reference` — the same solve in plain PyTorch: `mpc/solver.py`'s
   `_solve` (AL rounds, accept/reject, reg escalation, multiplier update),
   whose iterations run `backward_forward_reference` /
@@ -64,7 +68,7 @@ NS = len(SCAL_FIELDS)
 SOLVE_LAUNCHES = 0
 #: OCPs (warps) per block of the solve kernel: they share one copy of the
 #: lookup table.  A launch of B OCPs takes min(WARPS, B), and fewer where
-#: shared memory does not hold that many slices (long horizons in float64).
+#: shared memory does not hold that many slices (long tables or horizons).
 WARPS = 4
 MAX_WARPS = 4
 
@@ -265,8 +269,8 @@ def build():
     global _lib
     if _lib is None:
         lib = _build.load()
-        _build.bind(lib, _ENTRY.values(), 11, 9, 3)
-        lib.lto_ilqr_solve_smem_bytes.argtypes = [ctypes.c_int] * 6
+        _build.bind(lib, _ENTRY.values(), 11, 10, 3)
+        lib.lto_ilqr_solve_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.lto_ilqr_solve_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
@@ -306,16 +310,36 @@ def _check_solve(cfg, z0, us_init, lam_init, pk: Pack):
     return lead
 
 
-def smem_bytes(dtype, warps: int, N: int, L: int, n_con: int, n: int) -> int:
-    """Dynamic shared memory of a block of `warps` OCPs (0: refused)."""
+def smem_bytes(dtype, warps: int, N: int, L: int, n_con: int, n: int,
+               global_table: bool = False) -> int:
+    """Dynamic shared memory of a block of `warps` OCPs with the table in
+    shared or (`global_table`) global memory (0: refused)."""
     return int(build().lto_ilqr_solve_smem_bytes(torch.empty((), dtype=dtype).element_size(),
-                                                 warps, N, L, n_con, n))
+                                                 warps, N, L, n_con, n, int(global_table)))
 
 
-def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None):
+def placement(dtype, warps: int, N: int, L: int, n_con: int, n: int,
+              force_global: bool = False) -> tuple[int, bool]:
+    """(OCPs per block, table in global memory) of a launch: the table in
+    shared memory with the most OCPs per block up to `warps` that fit beside
+    it, else in global memory with the most that fit; raises where not even
+    one OCP's slice fits."""
+    for global_table in ((True,) if force_global else (False, True)):
+        W = next((w for w in range(warps, 0, -1)
+                  if smem_bytes(dtype, w, N, L, n_con, n, global_table)), 0)
+        if W:
+            return W, global_table
+    raise ValueError(f"the solve kernel does not hold one OCP of N={N} L={L} n_con={n_con} in "
+                     f"{dtype} in one block's shared memory")
+
+
+def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
+            force_global: bool = False):
     """Check, allocate the outputs, launch the solve kernel on the current
     stream with `warps` OCPs per block (default min(WARPS, B); fewer where
-    shared memory does not hold them), and count the launch."""
+    shared memory does not hold them) and the table where `placement` puts
+    it (`force_global`: in global memory whatever its length), and count
+    the launch."""
     global SOLVE_LAUNCHES
     lead = _check_solve(cfg, z0, us_init, lam_init, pk)
     B = lead[0] if lead else 1
@@ -324,10 +348,7 @@ def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None):
     want = min(WARPS, B) if warps is None else warps
     if not 1 <= want <= MAX_WARPS:
         raise ValueError(f"warps={want}: the kernel takes 1 to {MAX_WARPS} OCPs per block")
-    W = next((w for w in range(want, 0, -1) if smem_bytes(z0.dtype, w, N, L, n_con, n)), 0)
-    if W == 0:
-        raise ValueError(f"the solve kernel does not hold N={N} L={L} n_con={n_con} n={n} in "
-                         f"{z0.dtype} in one block's shared memory")
+    W, global_table = placement(z0.dtype, want, N, L, n_con, n, force_global)
     new = lambda *shape: torch.empty(lead + shape, dtype=z0.dtype, device=z0.device)
     outs = (new(N, NU), new(N + 1, NZ), new(N + 1, n_con), new(), new())
     ptrs = [t.data_ptr() for t in (z0, us_init, lam_init, *pk, *outs)]
@@ -335,7 +356,8 @@ def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None):
         stream = torch.cuda.current_stream(z0.device).cuda_stream
         rc = getattr(lib, _ENTRY[z0.dtype])(
             *ptrs, B, W, N, L, n_con, n, cfg.substeps, cfg.al_iters, cfg.ilqr_iters,
-            float(cfg.rho_init), float(cfg.rho_scale), float(cfg.reg_init), stream)
+            int(global_table), float(cfg.rho_init), float(cfg.rho_scale), float(cfg.reg_init),
+            stream)
     if rc != 0:
         raise RuntimeError(f"solve kernel launch failed: cudaError_t {rc}")
     SOLVE_LAUNCHES += 1

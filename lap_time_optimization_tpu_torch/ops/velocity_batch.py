@@ -31,7 +31,10 @@ mass: the two agree to roundoff, not bit for bit.
 The kernel's schedule computes the same values with one lap per sweep: one
 warp per candidate (`warps_for` picks W = 1, 2 or 4 candidates per block
 from B so that a search's batch spreads over the SMs); the rows and three
-streams (lateral limit, ds, curvature) in shared memory; both sweeps start
+streams (lateral limit, ds, curvature) in shared memory, or, for a lap
+longer than one block's shared memory holds (N > 11,622 in float32, 5,811
+in float64), in a global scratch of (B, 5, N) that `_launch` allocates, with
+the same schedule and the same bits; both sweeps start
 where the step resets whatever its carry (the first argmin of the lateral
 limit on a closed lap, the seams on an open one); lanes 0-15 run the
 acceleration sweep and 16-31 the braking sweep, each lap cut into P ≤ 16
@@ -58,6 +61,9 @@ N_PARAMS = 5
 LAUNCHES = 0
 #: Candidates (warps) per block: at most MAX_WARPS, chosen by `warps_for`.
 MAX_WARPS = 4
+#: Arrays of N a candidate keeps (k, v_loc, ds, v_acc, v_dec): in shared
+#: memory, or in the global scratch of the long laps.
+ARRAYS = 5
 #: Segments per sweep: the kernel takes 1 to MAX_SEGMENTS (one lane each of
 #: a sweep's 16); the wrapper launches SEGMENTS.
 MAX_SEGMENTS = 16
@@ -112,11 +118,17 @@ def _rows(s, k_abs, s_max):
 
 
 # --------------------------------------------------------------- plain twin
-def solve_profile_batch_reference(vehicle, s, k_abs, s_max, closed: bool = True):
+def solve_profile_batch_reference(vehicle, s, k_abs, s_max, closed: bool = True, sqrt=torch.sqrt):
     """Plain PyTorch version of the kernel, same signature and semantics as
     `solve_profile_batch`: both sweeps advanced together over two laps of
     2N steps on (B,) rows, the braking sweep on the flipped order, the
-    output written on the second lap, then min(v_acc, flip(v_dec))."""
+    output written on the second lap, then min(v_acc, flip(v_dec)).
+
+    `sqrt` is the square root it takes.  The card's is correctly rounded,
+    as numpy's is; PyTorch's vectorised CPU sqrt can be one ulp off, which
+    the friction circle near saturation magnifies over a long lap (1.3e-5
+    of a float32 profile at N = 20,831), so a CPU run held to the kernel's
+    bits passes numpy's."""
     B, N = k_abs.shape
     s, s_max = _rows(s, k_abs, s_max)
     s = s.reshape(-1, N).expand(B, N)
@@ -124,7 +136,7 @@ def solve_profile_batch_reference(vehicle, s, k_abs, s_max, closed: bool = True)
     params, engine, pacejka = pack_vehicle(vehicle, k_abs.dtype, k_abs.device)
     mass, f_cap, eng_const, eng_quad, mu_g = params.unbind()
     inv_mass = 1.0 / mass
-    v_local = torch.sqrt(mu_g / torch.maximum(k_abs, torch.full_like(k_abs, 1e-12)))
+    v_local = sqrt(mu_g / torch.maximum(k_abs, torch.full_like(k_abs, 1e-12)))
 
     ds_raw = s - torch.roll(s, 1, dims=1)
     sf = torch.flip(s, dims=(1,))
@@ -142,7 +154,7 @@ def solve_profile_batch_reference(vehicle, s, k_abs, s_max, closed: bool = True)
     def traction(v, k):
         f_lat = mass * v * v * k
         slack = f_cap * f_cap - f_lat * f_lat
-        return torch.where(slack > 0.0, torch.sqrt(torch.clamp(slack, min=1e-12)), torch.zeros_like(slack))
+        return torch.where(slack > 0.0, sqrt(torch.clamp(slack, min=1e-12)), torch.zeros_like(slack))
 
     def engine_force(v):
         if pacejka:
@@ -156,7 +168,7 @@ def solve_profile_batch_reference(vehicle, s, k_abs, s_max, closed: bool = True)
         force = traction(v_prev, k_p)
         if accelerating:
             force = torch.minimum(engine_force(v_prev), force)
-        vlim = torch.sqrt(v_prev * v_prev + 2.0 * force * inv_mass * torch.clamp(ds_j, min=0.0))
+        vlim = sqrt(v_prev * v_prev + 2.0 * force * inv_mass * torch.clamp(ds_j, min=0.0))
         grow = (ds_j >= 0.0) & (v_here > v_prev)
         return torch.where(grow, torch.minimum(v_here, vlim), v_here)
 
@@ -180,7 +192,7 @@ def build():
     global _lib
     if _lib is None:
         lib = _build.load()
-        _build.bind(lib, _ENTRY.values(), 6, 8)
+        _build.bind(lib, _ENTRY.values(), 7, 8)
         lib.lto_velocity_profile_batch_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.lto_velocity_profile_batch_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
@@ -195,17 +207,21 @@ def warps_for(B: int, n_sm: int) -> int:
 
 
 def smem_bytes(dtype, warps: int, N: int) -> int:
-    """Dynamic shared memory of a block of `warps` candidates (0: refused)."""
+    """Dynamic shared memory of a block of `warps` candidates with their
+    arrays in shared memory (0: refused, as for every N past the shared
+    placement's ceiling)."""
     return int(build().lto_velocity_profile_batch_smem_bytes(
         torch.empty((), dtype=dtype).element_size(), warps, N))
 
 
 def _launch(vehicle, s, k_abs, s_max, closed: bool, warps: int | None = None,
-            segments: int | None = None):
+            segments: int | None = None, force_global: bool = False):
     """Check the inputs, allocate the output, launch the kernel on the
     current stream with `warps` candidates per block (default `warps_for`;
     fewer where shared memory does not hold them) and `segments` per sweep
-    (default SEGMENTS), and count the launch."""
+    (default SEGMENTS), and count the launch.  The candidates' arrays sit in
+    shared memory where one candidate's fit, else (or with `force_global`)
+    in a global scratch of (B, ARRAYS, N) with `warps` per block."""
     global LAUNCHES
     if k_abs.dtype not in _ENTRY:
         raise TypeError(f"the velocity kernel takes float32 or float64, not {k_abs.dtype}")
@@ -227,13 +243,16 @@ def _launch(vehicle, s, k_abs, s_max, closed: bool, warps: int | None = None,
     lib = build()
     if warps is None:
         warps = warps_for(B, torch.cuda.get_device_properties(k_abs.device).multi_processor_count)
-    W = next((w for w in range(warps, 0, -1) if smem_bytes(k_abs.dtype, w, N)), 0)
-    if W == 0:
-        raise ValueError(f"the velocity kernel does not hold N={N} samples in {k_abs.dtype} "
-                         f"in one block's shared memory")
+    W, scratch = 0, None
+    if not force_global:
+        W = next((w for w in range(warps, 0, -1) if smem_bytes(k_abs.dtype, w, N)), 0)
+    if W == 0:  # the global placement
+        W = warps
+        scratch = torch.empty((B, ARRAYS, N), dtype=k_abs.dtype, device=k_abs.device)
     params, engine, pacejka = pack_vehicle(vehicle, k_abs.dtype, k_abs.device)
     out = torch.empty((B, N), dtype=k_abs.dtype, device=k_abs.device)
     ptrs = [t.data_ptr() for t in (s, k_abs, s_max, params, engine, out)]
+    ptrs.append(None if scratch is None else scratch.data_ptr())
     # s and s_max may be strided views (the searches pass s[:, :-1] and the
     # splines' lengths, t[:, -1])
     ints = (B, N, s.stride(0) if s.dim() == 2 else 0, s_max.stride(0) if s_max.dim() == 1 else 0,

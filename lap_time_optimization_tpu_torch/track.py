@@ -131,3 +131,29 @@ class Track(nn.Module):
     @property
     def n_decongested(self) -> int:
         return len(self.decongested_indices)
+
+
+def synthetic_circuit(ns: int, seed: int = 0, lobes: int = 12, width: float = 10.0,
+                      spacing: float = 10.0):
+    """Cones (left, right), each (2, m + 1) with the last pair repeating the
+    first, of a seeded closed circuit whose centre line is ns − 0.5 m long,
+    so that `Track.from_cones(left, right)` samples it ns times (`Track.ns`):
+    a full-size circuit for any lap length, with no data file.
+
+    The shape is a ring with lobes: centre radius r(θ) = R·(1 + 0.04·sin(lobes·θ
+    + φ) + 0.004·Σ sin(k·θ + φₖ)) over three seeded harmonics k in [20, 60),
+    R scaled to the length, the cones `width`/2 inside and outside r(θ)
+    (left is inside: the lap runs anticlockwise), a pair every ~`spacing` m.
+    """
+    rng = np.random.default_rng(seed)
+    length = ns - 0.5
+    m = max(8, round(length / spacing))
+    th = np.linspace(0.0, 2.0 * np.pi, m + 1)
+    shape = 1.0 + 0.04 * np.sin(lobes * th + rng.uniform(0.0, 2.0 * np.pi))
+    for k in rng.integers(20, 60, size=3):
+        shape = shape + 0.004 * np.sin(k * th + rng.uniform(0.0, 2.0 * np.pi))
+    ring = np.stack([np.cos(th), np.sin(th)])
+    r_mid = length / float(np.sum(np.hypot(*np.diff(shape * ring, axis=1)))) * shape
+    left, right = (r_mid - 0.5 * width) * ring, (r_mid + 0.5 * width) * ring
+    left[:, -1], right[:, -1] = left[:, 0], right[:, 0]
+    return left, right

@@ -29,8 +29,9 @@ REPLACED = {
     "ops/pallas_ilqr_batch.py:backward_forward_batch": "ops/ilqr.py:solve",
     "ops/pallas_ilqr_batch.py:window_tables": "ops/ilqr.py:solve",
     "ops/pallas_velocity.py:solve_profile_batch": "ops/velocity_batch.py:solve_profile_batch",
-    # The CUDA kernel holds the whole track table in shared memory, so
-    # there is no table window to size or check.
+    # The CUDA kernel reads the whole track table, from shared memory or,
+    # past what a block holds, from global memory, at any length: there is
+    # no table window to size or check.
     "mpc/solver.py:ensure_batch_window": None,
     "mpc/solver.py:required_batch_window": None,
     # JAX's --platform/--x64 flags become --device/--dtype.

@@ -20,6 +20,13 @@ multipliers: lam = max(0, lam + ρ g) turns a state difference d into ρ·d
 plain float32 solve itself lies up to 7.1e-3 from the float64 one on the
 same inputs (chip_smoke.py prints both).
 Libdevice trig, fused multiply-adds and the summation order differ.
+The table's placements: at 846 samples the wrapper keeps it in shared
+memory, and the launch with the table forced into global memory gives the
+same bits; the artifacts resampled to 20,832 samples (past the shared
+placement's 13,468 in float32 and 6,204 in float64) run with the table in
+global memory against the plain solve at the tolerances above; and only
+one OCP's slice bounds the sizes then (horizon 160 in float32, 79 in
+float64, at 6 rungs and 14 rows, whatever the table's length).
 Without a CUDA device every case skips: the kernel has no CPU mode.
 """
 
@@ -153,3 +160,58 @@ def test_cuda_solve_long_horizon_preset():
     model, p, pk, args = _setup(torch.float64, True, True, cfg, batch=4)
     got = ilqr.solve(model, p, cfg, *args, pk)
     _assert_close(got, ilqr.solve_reference(model, p, cfg, *args, pk), torch.float64)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("batch", [None, BATCH], ids=["B1", f"B{BATCH}"])
+def test_cuda_solve_global_table_is_the_shared_one(dtype, batch):
+    """At buckmore's 846 samples the table sits in shared memory; the same
+    launch with the table forced into global memory gives the same bits
+    (the same arithmetic, only the loads differ)."""
+    _need_cuda()
+    model, p, pk, args = _setup(dtype, True, True, CFG, batch=batch)
+    n_con, n = args[2].shape[-1], pk.tables.shape[-1]
+    assert ilqr.placement(dtype, ilqr.MAX_WARPS, 10, CFG.n_linesearch, n_con, n) == (4, False)
+    shared = ilqr.solve(model, p, CFG, *args, pk)
+    forced = ilqr._launch(CFG, *args, pk, force_global=True)
+    assert all(torch.equal(g, s) for g, s in zip(forced, shared))
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_cuda_solve_long_table_matches_plain(dtype):
+    """The shipped artifacts resampled to 20,832 samples (the Nordschleife's
+    metre count: 333 KB in float32, past the shared placement's 13,468):
+    the wrapper takes the global placement, and 4 states spread over the
+    lap match the plain solve at the tolerances above."""
+    _need_cuda()
+    track = mpc_track.load("MX-5", "buckmore", "curvature", base_dir=REPO_DATA, n_samples=20832)
+    model = BicycleModel(load_vehicle("MX5"), track).to("cuda", dtype)
+    p = S.OCPParams.reference(dtype, "cuda", lateral_margin=0.05)
+    pk = ilqr.pack(model, p, CFG)
+    assert ilqr.placement(dtype, 4, 10, CFG.n_linesearch, 14, 20832) == (4, True)
+    rng = np.random.default_rng(2)
+    x0 = np.tile(runner.X0_REFERENCE, (4, 1))
+    x0[:, 0] = [0.0, 300.0, 600.0, float(track.s_max) - 3.0]
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda").contiguous()
+    args = (t(np.concatenate([x0, np.zeros((4, 2))], axis=-1)),
+            t(np.stack([rng.normal(0.0, 0.3, (4, 10)), np.full((4, 10), 0.05)], axis=-1)),
+            t(rng.uniform(0.0, 2.0, (4, 11, 14))))
+    got = ilqr.solve(model, p, CFG, *args, pk)
+    _assert_close(got, ilqr.solve_reference(model, p, CFG, *args, pk), dtype)
+    one = ilqr.solve(model, p, CFG, *(a[1] for a in args), pk)
+    assert all(torch.equal(g[1], o) for g, o in zip(got, one))
+
+
+@pytest.mark.cuda
+def test_cuda_solve_refuses_only_a_slice_past_shared_memory():
+    """With the table in global memory only one OCP's slice bounds the
+    sizes: horizon 160 fits in float32 and 79 in float64 (6 rungs, 14
+    rows), one more does not, whatever the table's length."""
+    _need_cuda()
+    for dtype, top in ((torch.float32, 160), (torch.float64, 79)):
+        for n in (846, 20832, 1_000_000):
+            assert ilqr.placement(dtype, 1, top, 6, 14, n)[0] == 1
+            with pytest.raises(ValueError, match="does not hold one OCP"):
+                ilqr.placement(dtype, 1, top + 1, 6, 14, n)

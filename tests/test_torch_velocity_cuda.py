@@ -15,8 +15,13 @@ constant curvature where every sample ties, the minimum at sample 0 and at
 N-1) at N = 17, 300 and 846, closed and open.  Tolerance: |kernel − twin| ≤
 tol·max(1, |twin|), tol 1e-12 in float64 and 1e-5 in float32 (the kernel
 rounds every product on its own, as the twin's separate ops do), and the
-NaN positions equal.  Without a CUDA device every case skips: the kernel
-has no CPU mode.
+NaN positions equal.  The arrays' placements: forced into the global
+scratch, the kernel gives the shared placement's bits on the rows above;
+and on seeded synthetic circuits past the shared ceiling (N = 11,999 in
+float32, 5,999 in float64; `track.synthetic_circuit`) it
+meets the twin, run on the CPU with numpy's correctly rounded sqrt (as the
+card's), at the same tolerances.  Without a CUDA device every case skips:
+the kernel has no CPU mode.
 """
 
 import os
@@ -28,7 +33,7 @@ import torch
 from lap_time_optimization_tpu_torch.models import load_vehicle
 from lap_time_optimization_tpu_torch.ops import spline, velocity_batch
 from lap_time_optimization_tpu_torch.optim import global_search
-from lap_time_optimization_tpu_torch.track import Track
+from lap_time_optimization_tpu_torch.track import Track, synthetic_circuit
 from test_torch_velocity_schedule import hard_rows
 
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -130,3 +135,55 @@ def test_cuda_velocity_kernel_hard_rows(dtype, closed, N):
     for name in ("tbr18", "MX5"):
         _check(load_vehicle(name).to("cuda", dtype), s, k, length, closed, dtype, ALL_SEGMENTS,
                range(1, velocity_batch.MAX_WARPS + 1))
+
+
+@pytest.mark.cuda
+@DTYPES
+@VEHICLES
+def test_cuda_velocity_global_scratch_is_the_shared_placement(dtype, name):
+    """On buckmore's rows (N=846) the arrays sit in shared memory; forced
+    into the global scratch, every segment count and block shape gives the
+    same bits."""
+    _need_cuda()
+    s, k, length = _geometry(dtype)
+    veh = load_vehicle(name).to("cuda", dtype)
+    for closed, n in ((True, k.shape[1]), (False, 300)):
+        kn = k[:, :n].contiguous()
+        for P in (1, 4, 16):
+            for W in range(1, velocity_batch.MAX_WARPS + 1):
+                shared = velocity_batch._launch(veh, s[:, :n], kn, length, closed, warps=W, segments=P)
+                forced = velocity_batch._launch(veh, s[:, :n], kn, length, closed, warps=W, segments=P,
+                                                force_global=True)
+                assert torch.equal(forced, shared), (closed, P, W)
+
+
+def _cpu_twin(name, s, k, s_max, closed):
+    """The twin on CPU copies with numpy's square root, which is correctly
+    rounded as the card's is (see `solve_profile_batch_reference`)."""
+    veh = load_vehicle(name).to("cpu", k.dtype)
+    return velocity_batch.solve_profile_batch_reference(
+        veh, s.cpu(), k.cpu(), s_max.cpu(), closed,
+        sqrt=lambda x: torch.from_numpy(np.asarray(np.sqrt(x.numpy()))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, ns", [(torch.float32, 12000), (torch.float64, 6000)], ids=["float32", "float64"])
+def test_cuda_velocity_kernel_past_the_shared_ceiling(dtype, ns):
+    """A seeded synthetic circuit sampled once a metre, past the shared
+    placement's ceiling (N = 11,622 in float32, 5,811 in float64): the
+    global scratch against the twin, closed and open, both vehicles."""
+    _need_cuda()
+    track = Track.from_cones(*synthetic_circuit(ns), 0.99, name="synthetic").to("cuda", dtype)
+    alphas = np.random.default_rng(11).uniform(0.1, 0.9, (4, track.n_decongested))
+    with torch.no_grad():
+        s, k, length = global_search._geometry(track, torch.as_tensor(alphas, dtype=dtype, device="cuda"),
+                                               spline.FIT_METHOD_CLOSED_BATCHED)
+    s = s[:, :-1]
+    assert velocity_batch.smem_bytes(dtype, 1, k.shape[1]) == 0
+    for name in ("tbr18", "MX5"):
+        veh = load_vehicle(name).to("cuda", dtype)
+        for closed in (True, False):
+            launches = velocity_batch.LAUNCHES
+            got = velocity_batch.solve_profile_batch(veh, s, k, length, closed)
+            assert velocity_batch.LAUNCHES == launches + 1
+            _agrees(got, _cpu_twin(name, s, k, length, closed).to("cuda"), dtype)
