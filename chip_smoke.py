@@ -24,7 +24,9 @@ circuits, past both kernels' shared-memory ceilings: the NMPC loops on a
 table of the Nürburgring Nordschleife's 20,832 samples, the nonlinear
 search's selection on seeded synthetic circuits of its and
 Spa-Francorchamps' lengths (`track.synthetic_circuit`), and `--curvature`
-through the CLI on the 20 km one.
+through the CLI on the 20 km one.  Then long horizons and ladders, and the
+horizon-20 class (`SolverConfig.for_horizon(20)`) through a whole lap of
+`runner.closed_loop_chunked`, as the JAX package's tests drive it.
 Phases:
 
 1. versions, the card's name and power limit, TF32 off;
@@ -88,10 +90,8 @@ Phases:
    memory, bit-equal to the shared table on buckmore (f32 and f64, B = 1
    and 32), and both timed at B=1; (b) the shipped MX-5 curvature
    artifacts loaded with 20,832 samples (the table in global memory): one
-   solve against the plain solve (f64 and f32), the horizon ceiling of the
-   global placement found from the kernel's shared-memory sizes and run
-   (one more refused), and 100 single-stream cycles (f32, h10, launches
-   counted, applied violation < 1e-2); (c) the 32-loop fleet for 20 cycles
+   solve against the plain solve (f64 and f32) and 100 single-stream cycles
+   (f32, h10, launches counted, applied violation < 1e-2); (c) the 32-loop fleet for 20 cycles
    on it (finite states; instances 0-24 gated on the band and on progress:
    the JAX package's own controller drives 25-31 off the track there); the
    solve kernel timed on the long table
@@ -120,7 +120,27 @@ Phases:
    after every driven path, so the paths run in a fresh process, and a
    profiler session, which slows the process's later launches, comes after
    every timed path;
-13. the summary lines; the last one is {"ok": true, "device": {...}}.
+13. long horizons and the h20 class (run after phase 10, before the
+   profiler sessions of phases 11-12): (a) at buckmore h10 the solve
+   kernel's workspace placement forced (the scalars and the slices in a
+   global workspace in their shared-memory layout, the table in global
+   memory), bit-equal to the shared placement (f32 and f64, B = 1 and 32);
+   (b) past one OCP's slice in a block (N ≤ 160 in
+   f32, 79 in f64), the workspace placement at `for_horizon(N)` against the
+   plain solve at phase 3's tolerances (f32 N = 161 and 200, f64 N = 80 and
+   100, B = 1 and 32), and f32 at N = 400 launched (finite outputs); (c)
+   33 and 48 rungs at h10 (48 also reversed, so that the full step is rung
+   47) against the plain solve, f32 and f64; (d) `for_horizon(20)` through
+   950 cycles of `closed_loop_chunked` in chunks of 190 from X0_REFERENCE,
+   f64 then f32, each held to the JAX package's TestHorizon20 and
+   TestFullLap gates (applied states on the true band < 1e-2 over the
+   first 20 cycles, progress strictly monotone, the lap completed, |mu| <
+   0.5) and to one launch per cycle; (e) after every
+   gate, the solve kernel's time per call (CUDA events) with its bound at
+   h10 f64, B=4096, h20 (f32 and f64, B = 1 and 32), h40, N = 200 f32 and
+   N = 100 f64 (workspace) and 48 rungs, and the workspace forced at equal
+   horizon (h10 and N=160) beside the wrapper's placement;
+14. the summary lines; the last one is {"ok": true, "device": {...}}.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -210,6 +230,9 @@ LAP_TOL_F64 = 1e-8
 # (NVIDIA's H100 SXM data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# Its float64 rate outside the tensor cores (the same data sheet), for the
+# float64 solves that phase 13 times.
+F64_FLOP_PER_S = 34e12
 # Phase 9: the closed loop at `accurate()` (the window tests/test_mpc.py runs
 # the JAX package's at), the fleet's cycles on the mesh, the evolutionary
 # search's budget, and the tolerances of the exact solve (card vs CPU, f64)
@@ -245,6 +268,32 @@ LONG_FLEET_IN_BAND = 25
 # CPU the twin's and the scan's laps of that line are equal, and the f32
 # scan lies 1.0e-5 from the f64 one.
 LONG_LAP_RTOL = 1e-5
+# Phase 13, long horizons and the h20 class: the horizons past one block's
+# shared memory (one OCP's slice holds N <= 160 in float32 and 79 in float64
+# at 6 rungs and 14 rows), the ladders past one lane per rung, the f32
+# horizon launched once, and the h20 lap: JAX's TestFullLap (950 cycles of
+# `closed_loop_chunked` at `for_horizon(20)` in chunks of 190, f64) and
+# TestHorizon20 (applied states on the true band < 1e-2 over 20 cycles)
+# (tests/test_mpc.py:493-545).
+LONG_HORIZONS = {torch.float32: (161, 200), torch.float64: (80, 100)}
+HUGE_HORIZON = 400
+LONG_LADDERS = (33, 48)
+LAP_CYCLES, LAP_CHUNK, LAP_WINDOW, LAP_MU = 950, 190, 20, 0.5
+# The solve kernel's timed shapes beside the main path's (h10 f32 B=1):
+# (label, dtype, horizon of `SolverConfig.for_horizon`, rungs if not its 6,
+# B).
+TIMED_SOLVES = (
+    ("h10 f64", torch.float64, 10, None, 1),
+    ("h10 f32 B=4096", torch.float32, 10, None, 4096),
+    ("h20 f32", torch.float32, 20, None, 1),
+    ("h20 f32 B=32", torch.float32, 20, None, 32),
+    ("h20 f64", torch.float64, 20, None, 1),
+    ("h20 f64 B=32", torch.float64, 20, None, 32),
+    ("h40 f32", torch.float32, 40, None, 1),
+    ("N=200 f32 (workspace)", torch.float32, 200, None, 1),
+    ("N=100 f64 (workspace)", torch.float64, 100, None, 1),
+    ("L=48 h10 f32", torch.float32, 10, 48, 1),
+)
 
 
 def nvidia_smi() -> str:
@@ -272,9 +321,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(n_bytes: int, flops: float):
+def bound_ms(n_bytes: int, flops: float, flop_rate: float = F32_FLOP_PER_S):
     """(least time in ms, what sets it) for `n_bytes` moved and `flops` done."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -941,23 +990,6 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
             raise AssertionError(f"the {LONG_NS}-sample table took placement {where}")
         if dtype == torch.float32:
             worst = max(worst, err)
-        # the global placement's ceiling: one OCP's slice in shared memory
-        top = max(N for N in range(1, 1000) if ilqr.smem_bytes(dtype, 1, N, L, 14, LONG_NS, True))
-        cfg_top = dataclasses.replace(cfg, horizon=top)
-        pk_top = ilqr.pack(lmodel, lp, cfg_top)
-        outs = ilqr.solve(lmodel, lp, cfg_top, *solve_inputs(lmodel, cfg_top, runner.X0_REFERENCE, 0.0, 3), pk_top)
-        try:
-            ilqr.placement(dtype, 1, top + 1, L, 14, LONG_NS)
-            refused = False
-        except ValueError:
-            refused = True
-        print(f"  the horizon ceiling in {str(dtype)[6:]} (L={L}, 14 rows, table in global memory): N={top} runs "
-              f"({ilqr.smem_bytes(dtype, 1, top, L, 14, LONG_NS, True)} B of shared memory; cost "
-              f"{float(outs[3]):.3f}, outputs finite {all(bool(torch.isfinite(o).all()) for o in outs)}); N={top + 1} "
-              f"refused: {refused}")
-        if not refused:
-            raise AssertionError(f"horizon {top + 1} was not refused")
-        out[f"top_{str(dtype)[6:]}"] = top
     lmodel, lp, pk = models[torch.float32]
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device=device)
     runner.closed_loop(lmodel, lp, cfg, x0, 3)  # warm-up
@@ -1131,16 +1163,251 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
     return solve_n, k3_n, out, long_k3, worst
 
 
+def lap_gates(model, p, sim, window: int):
+    """TestHorizon20's and TestFullLap's gates of a lap: (applied violation
+    of the first `window` cycles on the true band, progress strictly
+    monotone, the last s past s_max, max |mu|, all finite)."""
+    from lap_time_optimization_tpu_torch.mpc import runner
+
+    head = runner.SimResult(*(a[:window + 1] for a in sim[:2]), *(a[:window] for a in sim[2:]))
+    xs = sim.xs.double().cpu().numpy()
+    return (runner.applied_violation(model, p, head), bool(np.all(np.diff(xs[:, 0]) > 0)),
+            float(xs[-1, 0]) > float(model.track.s_max), float(np.abs(xs[:, 2]).max()),
+            all(bool(torch.isfinite(a).all()) for a in sim))
+
+
+def loop_start(model, cfg, B):
+    """(z0, us_init, lam_init) a closed loop's first solve takes (the zero
+    warm start of `runner._presolve`): from X0_REFERENCE at B=1, from
+    bench.py's fleet (X0_REFERENCE + 0.01·b) at B > 1."""
+    from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.mpc import solver as S
+
+    dtype, device = model.track.k_vals.dtype, model.track.k_vals.device
+    x0 = runner.X0_REFERENCE if B == 1 else np.tile(runner.X0_REFERENCE, (B, 1)) + 0.01 * np.arange(B)[:, None]
+    lead = x0.shape[:-1]
+    z0 = torch.as_tensor(np.concatenate([x0, np.zeros(lead + (2,))], axis=-1), dtype=dtype, device=device)
+    zeros = lambda *shape: torch.zeros(lead + shape, dtype=dtype, device=device)
+    return z0, zeros(cfg.horizon, 2), zeros(cfg.horizon + 1, S.n_con(model))
+
+
+def check_long_solve(label, model, p, cfg, sargs, pk) -> int:
+    """The solve kernel against the plain solve per instance at long
+    horizons, where the plain solve is not always stable to rounding: with
+    `for_horizon`'s 2 x 5 iterations one ulp of z0 moves the plain solve
+    itself by many tolerances on some warm starts (at f32 N >= 161 on all
+    of the loops' warm starts), so two implementations that round
+    differently can be held only where it does not.  Each instance's distance (max over the
+    outputs, in units of phase 3's tolerance of each output) is held to 1
+    where the plain solve's own distance under one ulp of z0 is within 1;
+    every instance is held to finite outputs.  Prints both; returns the
+    number of instances held."""
+    from lap_time_optimization_tpu_torch.ops import ilqr
+
+    dtype = sargs[0].dtype
+    got = ilqr.solve(model, p, cfg, *sargs, pk)
+    lead = (lambda t: t[None]) if sargs[0].dim() == 1 else (lambda t: t)
+    z0, us, lam = (lead(a) for a in sargs)
+    B = z0.shape[0]
+    z0_ulp = torch.nextafter(z0, torch.full_like(z0, float("inf")))
+    both = ilqr.solve_reference(model, p, cfg, torch.cat([z0, z0_ulp]), torch.cat([us, us]),
+                                torch.cat([lam, lam]), pk)
+    ref, ref_ulp, got = [t[:B] for t in both], [t[B:] for t in both], [lead(t) for t in got]
+
+    def dist(a, b):  # per instance, in units of each output's tolerance
+        out = torch.zeros(B, dtype=torch.float64, device=z0.device)
+        for name, x, y in zip(SOLVE_FIELDS, a, b):
+            tol = (SOLVE_F64_TOL if dtype == torch.float64 else SOLVE_F32_LAM_TOL if name == "lam"
+                   else SOLVE_F32_TOL)
+            d = ((x.double() - y.double()).abs() / y.double().abs().clamp(min=1.0)).reshape(B, -1).amax(1)
+            out = torch.maximum(out, d / tol)
+        return out
+
+    d_kernel, d_ulp = dist(got, ref), dist(ref_ulp, ref)
+    stable = d_ulp <= 1.0
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    worst = lambda d, m: f"{float(d[m].max()):.3g}" if bool(m.any()) else "-"
+    print(f"{label}: {int(stable.sum())} of {B} instances stable to one ulp of z0 (the plain solve moves by <= 1 "
+          f"tolerance), the kernel's distance there {worst(d_kernel, stable)} tolerances (held <= 1); on the "
+          f"others the kernel's {worst(d_kernel, ~stable)}, the plain solve's own under one ulp "
+          f"{worst(d_ulp, ~stable)}; finite {finite}; cost {float(ref[3].max()):.2f}")
+    if not finite or bool((d_kernel[stable] > 1.0).any()):
+        raise AssertionError(f"{label}: the solve kernel disagrees with the plain solve")
+    return int(stable.sum())
+
+
+def phase_long_horizons(device):
+    """Phase 13: the solve kernel's workspace placement and long ladders
+    against the shared placement and the plain solve, the h20 class through
+    a whole lap, then the kernel's times (see the module docstring).
+    Returns the solve-kernel launches of its driven paths and its readings."""
+    from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.mpc.solver import SolverConfig
+    from lap_time_optimization_tpu_torch.ops import ilqr
+
+    t_phase = time.perf_counter()
+    launches, out = 0, {}
+    h10 = SolverConfig(horizon=10)
+    dt = lambda dtype: str(dtype)[6:]
+    cases = lambda model, B: (runner.X0_REFERENCE if B == 1 else fleet_states(model.track, B))
+
+    # bits: at buckmore h10 the slices sit in shared memory; the workspace
+    # forced (scalars, slices and table in global memory) gives the same bits
+    for dtype in (torch.float64, torch.float32):
+        model, p = load_main_path(device, dtype)
+        pk = ilqr.pack(model, p, h10)
+        for B in (1, BATCH):
+            sargs = solve_inputs(model, h10, cases(model, B), 2.0, 1 if B == 1 else 3)
+            where = ilqr.placement(dtype, min(ilqr.WARPS, B), 10, h10.n_linesearch, 14, pk.tables.shape[-1])
+            shared = ilqr._launch(h10, *sargs, pk)
+            same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(h10, *sargs, pk, force_workspace=True), shared))
+            print(f"solve kernel {dt(dtype)} B={B} h10: the wrapper's placement {tuple(where)}; the workspace "
+                  f"forced: bit-equal {same}")
+            if where.workspace or not same:
+                raise AssertionError(f"workspace placement {dt(dtype)} B={B}: placement {where}, bit-equal {same}")
+
+    # long horizons.  At the last horizon one OCP's slice fits a block, the
+    # workspace forced gives the bits of the slice in shared memory; past
+    # it, the workspace against the plain solve (B=1 and 32, from the
+    # warm start a closed loop begins with), per instance at phase 3's
+    # tolerances where the plain solve itself is stable to one ulp of z0
+    # (see check_long_solve)
+    for dtype, horizons in LONG_HORIZONS.items():
+        model, p = load_main_path(device, dtype)
+        n = int(model.track.k_vals.shape[0])
+        top = max(N for N in range(1, 400) if ilqr.smem_bytes(dtype, 1, N, 6, 14, n, True))
+        cfg = SolverConfig.for_horizon(top)
+        pk = ilqr.pack(model, p, cfg)
+        for B in (1, BATCH):
+            sargs = loop_start(model, cfg, B)
+            own = ilqr.solve(model, p, cfg, *sargs, pk)
+            same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(cfg, *sargs, pk, force_workspace=True), own))
+            print(f"N={top}, the last horizon whose slice fits a block in {dt(dtype)} (6 rungs, 14 rows), B={B}: the "
+                  f"wrapper's placement {tuple(ilqr.placement(dtype, min(ilqr.WARPS, B), top, 6, 14, n))}; the "
+                  f"workspace forced: bit-equal {same}; N={top + 1} takes "
+                  f"{tuple(ilqr.placement(dtype, min(ilqr.WARPS, B), top + 1, 6, 14, n))}")
+            if not same or ilqr.placement(dtype, 1, top, 6, 14, n).workspace:
+                raise AssertionError(f"the workspace at N={top} {dt(dtype)} B={B} differs from the shared slice")
+        for N in horizons:
+            cfg = SolverConfig.for_horizon(N)
+            pk = ilqr.pack(model, p, cfg)
+            for B in (1, BATCH):
+                where = ilqr.placement(dtype, min(ilqr.WARPS, B), N, 6, 14, n)
+                if not where.workspace:
+                    raise AssertionError(f"N={N} {dt(dtype)} took placement {where}")
+                held = check_long_solve(f"solve kernel vs plain {dt(dtype)} N={N} B={B} (placement {tuple(where)})",
+                                        model, p, cfg, loop_start(model, cfg, B), pk)
+                if dtype == torch.float64 and not held:
+                    raise AssertionError(f"no f64 instance at N={N} B={B} is stable enough to hold")
+    model, p = load_main_path(device, torch.float32)
+    cfg = SolverConfig.for_horizon(LONG_HORIZONS[torch.float32][-1])
+    pk = ilqr.pack(model, p, cfg)
+    sargs = loop_start(model, cfg, BATCH)
+    got = ilqr.solve(model, p, cfg, *sargs, pk)
+    same = all(torch.equal(g[b], o) for b in range(BATCH)
+               for g, o in zip(got, ilqr.solve(model, p, cfg, *(a[b] for a in sargs), pk)))
+    print(f"solve kernel f32 N={cfg.horizon} B={BATCH} (workspace) vs B=1 per instance: bit-equal {same}")
+    if not same:
+        raise AssertionError(f"a workspace batch instance at N={cfg.horizon} differs from its B=1 launch")
+    model, p = load_main_path(device, torch.float32)
+    cfg = SolverConfig.for_horizon(HUGE_HORIZON)
+    pk = ilqr.pack(model, p, cfg)
+    got = ilqr.solve(model, p, cfg, *solve_inputs(model, cfg, runner.X0_REFERENCE, 0.0, 3), pk)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    print(f"solve kernel f32 N={HUGE_HORIZON} B=1 ({ilqr.workspace_elems(1, HUGE_HORIZON, 6, 14) * 4} B of workspace): "
+          f"outputs finite {finite}; cost {float(got[3]):.3f}, max violation {float(got[4]):.3e}")
+    if not finite:
+        raise AssertionError(f"the f32 solve at N={HUGE_HORIZON} is not finite")
+
+    # long ladders: past one lane per rung, against the plain solve; at 48
+    # rungs also reversed, so that the full step lies on rung 47
+    for dtype in (torch.float64, torch.float32):
+        model, p = load_main_path(device, dtype)
+        sargs = solve_inputs(model, h10, np.array([430.0, *runner.X0_REFERENCE[1:]]), 2.0, 1)
+        for L in LONG_LADDERS:
+            cfg = dataclasses.replace(h10, n_linesearch=L)
+            pk = ilqr.pack(model, p, cfg)
+            for name, pk_l in (("", pk), (" reversed", pk._replace(alphas=pk.alphas.flip(0).contiguous())))[
+                    :1 + (L == LONG_LADDERS[-1])]:
+                got = ilqr.solve(model, p, cfg, *sargs, pk_l)
+                check_solve(f"solve kernel vs plain {dt(dtype)} L={L}{name} h10 B=1 s0=430", got,
+                            ilqr.solve_reference(model, p, cfg, *sargs, pk_l), dtype)
+
+    # the h20 class through a whole lap: TestFullLap and TestHorizon20 on
+    # the card, f64 and f32 (JAX runs them in f64; f32 meets them too)
+    cfg = SolverConfig.for_horizon(20)
+    for dtype in (torch.float64, torch.float32):
+        model, p = load_main_path(device, dtype)
+        x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=dtype, device=device)
+        runner.closed_loop_chunked(model, p, cfg, x0, 3, chunk=LAP_CHUNK)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sim = runner.closed_loop_chunked(model, p, cfg, x0, LAP_CYCLES, chunk=LAP_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        applied, monotone, lapped, mu, finite = lap_gates(model, p, sim, LAP_WINDOW)
+        meets = applied < 1e-2 and monotone and lapped and mu < LAP_MU and finite
+        out[f"lap_hz_{dt(dtype)}"] = LAP_CYCLES / wall
+        print(f"h20 lap (for_horizon(20), {LAP_CYCLES} cycles of closed_loop_chunked, chunk {LAP_CHUNK}, "
+              f"{dt(dtype)}): {wall:.3f} s = {LAP_CYCLES / wall:.2f} Hz; progress {float(sim.xs[-1, 0]):.2f} m of "
+              f"{float(model.track.s_max):.2f}; applied violation over the first {LAP_WINDOW} cycles {applied:.3e} "
+              f"(< 1e-2), over the lap {runner.applied_violation(model, p, sim):.3e}; progress monotone {monotone}; "
+              f"lap completed {lapped}; max |mu| {mu:.4f} (< {LAP_MU}); finite {finite}; JAX's gates met {meets}; "
+              f"launches {counts}")
+        if counts != (LAP_CYCLES + 2, 0):
+            raise AssertionError(f"h20 lap launches {counts}, expected ({LAP_CYCLES + 2}, 0)")
+        if not meets:
+            raise AssertionError(f"the {dt(dtype)} h20 lap fails its gates")
+        launches += counts[0]
+
+    # times, after every gate: CUDA events per call, with the bound
+    timed = []
+    for label, dtype, horizon, rungs, B in TIMED_SOLVES:
+        cfg = SolverConfig.for_horizon(horizon)
+        cfg = cfg if rungs is None else dataclasses.replace(cfg, n_linesearch=rungs)
+        model, p = load_main_path(device, dtype)
+        pk = ilqr.pack(model, p, cfg)
+        sargs = solve_inputs(model, cfg, cases(model, B), 0.0 if B == 1 else 2.0, 3)
+        outs = ilqr.solve(model, p, cfg, *sargs, pk)
+        ms = cuda_ms(lambda: ilqr.solve(model, p, cfg, *sargs, pk), 5 if cfg.horizon > 40 or B > BATCH else 20)
+        bound = bound_ms(nbytes(*sargs, *pk, *outs), B * solve_flops(cfg),
+                         F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S)
+        where = ilqr.placement(dtype, min(ilqr.WARPS, B), cfg.horizon, cfg.n_linesearch, 14, pk.tables.shape[-1])
+        timed.append((label, ms, bound))
+        print(f"solve kernel per call {label} B={B} (N={cfg.horizon} L={cfg.n_linesearch} substeps={cfg.substeps} "
+              f"{cfg.al_iters}x{cfg.ilqr_iters} iterations, placement {tuple(where)}): {ms:.4f} ms; "
+              f"bound {bound[0] * 1e3:.4f} us ({bound[1]})")
+    # the workspace's own cost at equal horizon: forced at h10 and at N=160
+    # (the last f32 slice a block holds) beside the placement the wrapper takes
+    model, p = load_main_path(device, torch.float32)
+    for cfg in (h10, SolverConfig.for_horizon(160)):
+        pk = ilqr.pack(model, p, cfg)
+        sargs = solve_inputs(model, cfg, runner.X0_REFERENCE, 0.0, 3)
+        own = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk), 10)
+        ws = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, force_workspace=True), 10)
+        out[f"workspace_cost_{cfg.horizon}"] = ws / own
+        print(f"solve kernel f32 B=1 N={cfg.horizon}: the wrapper's placement "
+              f"{tuple(ilqr.placement(torch.float32, 1, cfg.horizon, 6, 14, pk.tables.shape[-1]))} {own:.4f} ms, "
+              f"the workspace forced {ws:.4f} ms ({ws / own:.3f}x)")
+    out["timed"] = timed
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: {out['phase_s']:.1f} s")
+    return launches, out
+
+
 def fingerprint(device) -> dict:
     """SHA-256 of both kernels' outputs through their wrappers on phase 3's
     solve inputs (three single states and 32 over the lap, three model
     variants, f64 and f32) and on the 1024 tbr18 buckmore lines of phase 11
     (tbr18 and MX5, closed and the first 300 samples open, f64 and f32),
-    with hashes of those inputs, and the kernels' times at the main paths'
+    with hashes of those inputs, the kernels' times at the main paths'
     shapes: the solve kernel per call at B = 1 and 32 (CUDA events) and
-    kernel 3 at B=1024 (device time).  Only public entry points that every
-    slice of the port has are used, so the same script run beside an
-    earlier tree shows whether a change kept the kernels' bits."""
+    kernel 3 at B=1024 (device time), and the NMPC rates of phases 4-5
+    (host clock).  Only public entry points that every slice of the port
+    has are used, so the same script run beside an earlier tree shows
+    whether a change kept the kernels' bits and the loops' rates."""
     import hashlib
 
     from lap_time_optimization_tpu_torch.mpc import runner
@@ -1149,7 +1416,7 @@ def fingerprint(device) -> dict:
     from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
     from lap_time_optimization_tpu_torch.optim import global_search as gs
 
-    digest = {name: hashlib.sha256() for name in ("solve_in", "solve_out", "k3_in", "k3_out")}
+    digest = {name: hashlib.sha256() for name in ("solve_in", "solve_out", "solve_l32_out", "k3_in", "k3_out")}
     feed = lambda name, *ts: [digest[name].update(t.detach().cpu().contiguous().numpy().tobytes()) for t in ts]
     cfg = SolverConfig(horizon=10)
     out = {}
@@ -1164,11 +1431,30 @@ def fingerprint(device) -> dict:
                 sargs = solve_inputs(model, cfg, x0, lam, seed)
                 feed("solve_in", *sargs, *pk)
                 feed("solve_out", *ilqr.solve(model, p, cfg, *sargs, pk))
+            cfg32 = dataclasses.replace(cfg, n_linesearch=32)  # the most rungs every slice takes
+            pk32 = ilqr.pack(model, p, cfg32)
+            for x0, lam, seed in cases:
+                feed("solve_l32_out", *ilqr.solve(model, p, cfg32, *solve_inputs(model, cfg32, x0, lam, seed), pk32))
             if dtype == torch.float32 and not (tv or te):
                 for B in (1, BATCH):
                     sargs = solve_inputs(model, cfg, runner.X0_REFERENCE if B == 1 else fleet_states(model.track, B),
                                          0.0 if B == 1 else 2.0, 3)
                     out[f"solve_ms_B{B}"] = cuda_ms(lambda: ilqr.solve(model, p, cfg, *sargs, pk), 20)
+    # the single stream (500 cycles) and the fleet (32 x 100) of phases 4-5,
+    # before kernel 3's profiler session, which slows later launches
+    model, p = load_main_path(device, torch.float32)
+    x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device=device)
+    x0b = torch.as_tensor(np.tile(runner.X0_REFERENCE, (BATCH, 1)) + 0.01 * np.arange(BATCH)[:, None],
+                          dtype=torch.float32, device=device)  # bench.py:81-83
+    for name, loop, steps, B in (("single_stream_hz", runner.closed_loop, 500, 1),
+                                 ("fleet_solves_per_s", runner.closed_loop_batch, 100, BATCH)):
+        start = x0 if B == 1 else x0b
+        loop(model, p, cfg, start, 3)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(model, p, cfg, start, steps)
+        torch.cuda.synchronize()
+        out[name] = B * steps / (time.perf_counter() - t0)
     n_dec = search_setup("cpu", torch.float64)[0].n_decongested
     alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
     for dtype in (torch.float64, torch.float32):
@@ -1537,6 +1823,10 @@ def main(argv=None) -> int:
     p10_solve, p10_k3, _, long_k3, p10_worst = phase_long_tracks(device, cfg, conf, x0b_np)
     worst_f32_abs = max(worst_f32_abs, p10_worst)
 
+    # ---------------------------------------------------------------- phase 13
+    # before phases 11-12, whose profiler sessions slow later launches
+    p13_solve, _ = phase_long_horizons(device)
+
     # ---------------------------------------------------------------- phase 11
     # Kernel 3's checks and timings come after every driven path, so that the
     # paths run in a fresh process: a profiler session leaves the process's
@@ -1627,16 +1917,16 @@ def main(argv=None) -> int:
         profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
                        "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
 
-    # ---------------------------------------------------------------- phase 13
+    # ---------------------------------------------------------------- phase 14
     print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}, "
-          f"phase 9 {p9_solve}, phase 10 {p10_solve}; kernel-3 launches in phase 10 {p10_k3}")
+          f"phase 9 {p9_solve}, phase 10 {p10_solve}, phase 13 {p13_solve}; kernel-3 launches in phase 10 {p10_k3}")
     print(json.dumps({"kernels": [{
         "name": "ilqr_solve",
         "route": "cuda",
         "source": "lap_time_optimization_tpu_torch/csrc/ilqr.cu",
         "replaces": "lap_time_optimization_tpu/ops/pallas_ilqr.py:471 and "
                     "lap_time_optimization_tpu/ops/pallas_ilqr_batch.py:444",
-        "launches": launches + batch_launches + p9_solve + p10_solve,
+        "launches": launches + batch_launches + p9_solve + p10_solve + p13_solve,
         "max_abs_err": worst_f32_abs,
         "ms": solve_ms[1, 1],  # the wrapper launches one warp at B=1
         "plain_ms": plain_ms[1],

@@ -41,16 +41,18 @@
 //    other.  Instance b of a batch is computed exactly as at B = 1.
 //  * Everything an OCP keeps between iterations (trajectory, multipliers,
 //    stage Jacobians, GN quads, gains, value function, ladder trajectories)
-//    sits in the warp's slice of dynamic shared memory for the whole solve;
-//    scalars (rho, reg, the AL cost) are in registers, identical on every
-//    lane.
+//    sits in the warp's slice of dynamic shared memory for the whole solve,
+//    or, past what a block holds, in the same layout in a global workspace
+//    (below); scalars (rho, reg, the AL cost) are in registers, identical
+//    on every lane.
 //  * Lanes split the stage-parallel work: the linearisation one (stage,
 //    tangent column) per lane, carrying the tangent through the 2x4 RK4
 //    stages as BicycleModel.step_and_jacobian does, with the partials of
 //    rhs_and_jacobian; the GN quads 2 Jr'Jr + rho Jg' diag(act) Jg one stage
 //    per lane, over the sparse rows of Jr and Jg; the ladder one rung per
-//    lane (L <= 32); the AL costs and the multiplier update one stage per
-//    lane.  Each Riccati stage is three warp-synchronous phases of ~4 output
+//    lane (rung r on lane r % 32: past 32 rungs a lane runs several in
+//    turn); the AL costs and the multiplier update one stage per lane.
+//    Each Riccati stage is three warp-synchronous phases of ~4 output
 //    elements per lane: P = Vzz [A|B] with Q = l + [A|B]'Vz; the Q blocks
 //    [A|B]'P; then the gains (each lane inverts Quu itself) fused with the
 //    symmetrised value update.
@@ -66,20 +68,31 @@
 // it fits beside them, the (4, n) table (the shared placement).  A longer
 // table stays in global memory (the global placement: 333 KB at n = 20,832
 // in f32, which the 50 MB L2 holds), read through the kernel's const
-// __restrict__ argument; the kernel is a template on the placement whose
-// only difference is where the table pointer points, so the two placements
-// run the same device functions on the same values.  The
-// launch raises the dynamic limit above 48 KB and refuses sizes past the
-// 227 KB a block can hold: with the global placement only the horizon and
-// the ladder bound that (one slice at L=6, 14 rows: N <= 160 in f32, 79
-// in f64).
+// __restrict__ argument.  The launch raises the dynamic limit above 48 KB;
+// a block holds 227 KB, so with the table in global memory one slice fits
+// up to N = 160 in f32 and 79 in f64 (L=6, 14 rows; a slice grows by ~358
+// elements a stage).  Past that, what the block kept in shared memory, the
+// scalars and its W slices in the same layout, lives in the block's part of
+// a global workspace that the caller allocates, with the table in global
+// memory (the workspace placement: 287 KB per OCP at N = 200 in f32, which
+// the 50 MB L2 holds), and any horizon runs; only an OCP's slice past 2^31
+// elements (32-bit indices) is refused.  The kernel is a template on the
+// placement whose only difference is where its pointers point: every
+// placement runs the same device functions on the same values, and its
+// pointers alias one another as in shared memory (all from one base), so
+// the compiler emits the same arithmetic and the placements give the same
+// bits.
 //
 // C interface (one entry point per type): every pointer is a contiguous
 // device buffer in the layouts of ops/ilqr.py::solve (a leading instance
-// axis B); `global_table` picks the placement; the launch goes onto
-// `stream`, allocates nothing and returns cudaGetLastError().
-// lto_ilqr_solve_smem_bytes gives the dynamic shared memory of a launch, or
-// 0 for sizes the kernel does not take.
+// axis B); `global_table` picks the table's placement and a non-null
+// `workspace` (ceil(B / W) x lto_ilqr_solve_workspace_elems() elements)
+// the workspace placement, whose table is in global memory; the launch goes
+// onto `stream`, allocates nothing and returns cudaGetLastError().
+// lto_ilqr_solve_smem_bytes gives the dynamic shared memory of a launch in
+// shared memory, or 0 for sizes it does not take.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -791,16 +804,21 @@ __device__ void riccati(Slice<T>& S, int N, T reg, int lane) {
 }
 
 // The whole solve for B instances, one warp each (see the note at the top).
-// GTAB: the table stays in global memory (the global placement).
-template <typename T, bool GTAB>
+// GTAB: the table stays in global memory (the global placement).  GWS: the
+// scalars and the slices, laid out as in shared memory, are the block's
+// part of the workspace `ws` (the workspace placement; the table global).
+template <typename T, bool GTAB, bool GWS>
 __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
     const T* __restrict__ z0, const T* __restrict__ us_init, const T* __restrict__ lam_init,
     const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
     T* __restrict__ us_out, T* __restrict__ zs_out, T* __restrict__ lam_out,
-    T* __restrict__ cost_out, T* __restrict__ viol_out, int Bt, int W, int N, int L, int n_con,
-    int n, int substeps, int al_iters, int ilqr_iters, T rho_init, T rho_scale, T reg_init) {
+    T* __restrict__ cost_out, T* __restrict__ viol_out, T* __restrict__ ws, int Bt, int W, int N,
+    int L, int n_con, int n, int substeps, int al_iters, int ilqr_iters, T rho_init, T rho_scale,
+    T reg_init) {
+  static_assert(GTAB || !GWS, "the workspace placement reads the table from global memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sc = reinterpret_cast<T*>(smem_raw);
+  T* sc = GWS ? ws + (size_t)blockIdx.x * (NS + (size_t)W * solve_slice_elems(N, L, n_con))
+              : reinterpret_cast<T*>(smem_raw);
   T* tab_s = sc + NS;
   for (int i = threadIdx.x; i < NS; i += blockDim.x) sc[i] = scal[i];
   if (!GTAB)
@@ -863,11 +881,11 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
       __syncwarp();
       riccati(S, N, reg, lane);
 
-      // ladder: one rung per lane
-      if (lane < L) {
-        const T alpha = alphas[lane];
+      // ladder: rung r on lane r % 32
+      for (int r = lane; r < L; r += WARP) {
+        const T alpha = alphas[r];
         T z[NZ], u[NU];
-        for (int i = 0; i < NZ; ++i) S.zall[lane * NZ + i] = z[i] = S.zs[i];
+        for (int i = 0; i < NZ; ++i) S.zall[r * NZ + i] = z[i] = S.zs[i];
         T acc = T(0);
         for (int k = 0; k < N; ++k) {
           const T* zr = S.zs + k * NZ;
@@ -878,11 +896,11 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
           }
           acc += al_stage_cost(z, u, S.lam + k * n_con, rho, n_con, tab, n, sc);
           dyn_step(z, u, tab, n, sc, substeps);
-          for (int c = 0; c < NU; ++c) S.uall[(k * L + lane) * NU + c] = u[c];
-          for (int i = 0; i < NZ; ++i) S.zall[((k + 1) * L + lane) * NZ + i] = z[i];
+          for (int c = 0; c < NU; ++c) S.uall[(k * L + r) * NU + c] = u[c];
+          for (int i = 0; i < NZ; ++i) S.zall[((k + 1) * L + r) * NZ + i] = z[i];
         }
         const T c = acc + al_terminal_cost(z, S.lam + N * n_con, rho, n_con, tab, n, sc);
-        S.scr[lane] = m_finite(c) ? c : m_inf(c);
+        S.scr[r] = m_finite(c) ? c : m_inf(c);
       }
       __syncwarp();
       // the lowest-index minimal rung, found by every lane
@@ -949,18 +967,28 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
   }
 }
 
+// Sizes the kernel takes: an OCP's slice is indexed with 32-bit ints.
+inline bool solve_sizes_ok(int W, int N, int L, int n_con) {
+  return W >= 1 && W <= MAX_WARPS && N >= 1 && L >= 1 && (n_con == N_CON || n_con == N_CON + 2) &&
+         solve_slice_elems(N, L, n_con) <= INT_MAX;
+}
+
 // Dynamic shared memory of one block of W instances with the table in
 // shared (gtab = 0) or global memory, or 0 if the sizes are not ones the
-// kernel takes.
+// kernel takes or do not fit a block.
 template <typename T>
 size_t solve_smem_bytes(int W, int N, int L, int n_con, int n, int gtab) {
-  if (W < 1 || W > MAX_WARPS || N < 1 || L < 1 || L > WARP || n < 2 ||
-      (n_con != N_CON && n_con != N_CON + 2)) {
-    return 0;
-  }
+  if (!solve_sizes_ok(W, N, L, n_con) || n < 2) return 0;
   const size_t table = gtab ? 0 : 4 * (size_t)n;
   const size_t bytes = (NS + table + W * solve_slice_elems(N, L, n_con)) * sizeof(T);
   return bytes <= MAX_SMEM ? bytes : 0;
+}
+
+// Elements of one block's part of the workspace placement's workspace: the
+// scalars and W slices (0 if the sizes are not ones the kernel takes).
+inline size_t solve_workspace_elems(int W, int N, int L, int n_con) {
+  if (!solve_sizes_ok(W, N, L, n_con)) return 0;
+  return NS + (size_t)W * solve_slice_elems(N, L, n_con);
 }
 
 // Above 48 KB a kernel needs its dynamic shared memory limit raised first.
@@ -974,18 +1002,20 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <typename T>
 int launch_solve(const T* z0, const T* us_init, const T* lam_init, const T* tables,
                  const T* alphas, const T* scal, T* us_out, T* zs_out, T* lam_out, T* cost_out,
-                 T* viol_out, int Bt, int W, int N, int L, int n_con, int n, int substeps,
+                 T* viol_out, T* ws, int Bt, int W, int N, int L, int n_con, int n, int substeps,
                  int al_iters, int ilqr_iters, int gtab, double rho_init, double rho_scale,
                  double reg_init, void* stream) {
-  const size_t bytes = solve_smem_bytes<T>(W, N, L, n_con, n, gtab);
-  if (bytes == 0 || Bt < 1 || substeps < 1 || al_iters < 0 || ilqr_iters < 0) {
+  const size_t bytes = ws ? 0 : solve_smem_bytes<T>(W, N, L, n_con, n, gtab);
+  if ((ws ? !solve_sizes_ok(W, N, L, n_con) || n < 2 : bytes == 0) || Bt < 1 || substeps < 1 ||
+      al_iters < 0 || ilqr_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = gtab ? ilqr_solve_kernel<T, true> : ilqr_solve_kernel<T, false>;
+  auto kernel = ws ? ilqr_solve_kernel<T, true, true>
+                   : (gtab ? ilqr_solve_kernel<T, true, false> : ilqr_solve_kernel<T, false, false>);
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (Bt + W - 1) / W;
-  kernel<<<grid, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out, cost_out, viol_out, Bt, W, N, L, n_con, n, substeps, al_iters, ilqr_iters, T(rho_init), T(rho_scale), T(reg_init));
+  kernel<<<grid, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out, cost_out, viol_out, ws, Bt, W, N, L, n_con, n, substeps, al_iters, ilqr_iters, T(rho_init), T(rho_scale), T(reg_init));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -994,35 +1024,43 @@ int launch_solve(const T* z0, const T* us_init, const T* lam_init, const T* tabl
 extern "C" int lto_ilqr_solve_f32(const float* z0, const float* us_init, const float* lam_init,
                                   const float* tables, const float* alphas, const float* scal,
                                   float* us_out, float* zs_out, float* lam_out, float* cost_out,
-                                  float* viol_out, int Bt, int W, int N, int L, int n_con, int n,
-                                  int substeps, int al_iters, int ilqr_iters, int global_table,
-                                  double rho_init, double rho_scale, double reg_init,
-                                  void* stream) {
+                                  float* viol_out, float* workspace, int Bt, int W, int N, int L,
+                                  int n_con, int n, int substeps, int al_iters, int ilqr_iters,
+                                  int global_table, double rho_init, double rho_scale,
+                                  double reg_init, void* stream) {
   return launch_solve<float>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out,
-                             cost_out, viol_out, Bt, W, N, L, n_con, n, substeps, al_iters,
-                             ilqr_iters, global_table, rho_init, rho_scale, reg_init, stream);
+                             cost_out, viol_out, workspace, Bt, W, N, L, n_con, n, substeps,
+                             al_iters, ilqr_iters, global_table, rho_init, rho_scale, reg_init,
+                             stream);
 }
 
 extern "C" int lto_ilqr_solve_f64(const double* z0, const double* us_init,
                                   const double* lam_init, const double* tables,
                                   const double* alphas, const double* scal, double* us_out,
                                   double* zs_out, double* lam_out, double* cost_out,
-                                  double* viol_out, int Bt, int W, int N, int L, int n_con, int n,
-                                  int substeps, int al_iters, int ilqr_iters, int global_table,
-                                  double rho_init, double rho_scale, double reg_init,
-                                  void* stream) {
+                                  double* viol_out, double* workspace, int Bt, int W, int N, int L,
+                                  int n_con, int n, int substeps, int al_iters, int ilqr_iters,
+                                  int global_table, double rho_init, double rho_scale,
+                                  double reg_init, void* stream) {
   return launch_solve<double>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out,
-                              lam_out, cost_out, viol_out, Bt, W, N, L, n_con, n, substeps,
-                              al_iters, ilqr_iters, global_table, rho_init, rho_scale, reg_init,
-                              stream);
+                              lam_out, cost_out, viol_out, workspace, Bt, W, N, L, n_con, n,
+                              substeps, al_iters, ilqr_iters, global_table, rho_init, rho_scale,
+                              reg_init, stream);
 }
 
-// Dynamic shared memory of a launch (element size 4 or 8) with the table in
-// shared (global_table = 0) or global memory, 0 if refused.
+// Dynamic shared memory of a launch in shared memory (element size 4 or 8)
+// with the table in shared (global_table = 0) or global memory, 0 if
+// refused.
 extern "C" long long lto_ilqr_solve_smem_bytes(int elem_size, int W, int N, int L, int n_con,
                                                int n, int global_table) {
   const size_t bytes = elem_size == 8
                            ? solve_smem_bytes<double>(W, N, L, n_con, n, global_table)
                            : solve_smem_bytes<float>(W, N, L, n_con, n, global_table);
   return static_cast<long long>(bytes);
+}
+
+// Elements of one block's part of the workspace of a launch in the
+// workspace placement, 0 if refused.
+extern "C" long long lto_ilqr_solve_workspace_elems(int W, int N, int L, int n_con) {
+  return static_cast<long long>(solve_workspace_elems(W, N, L, n_con));
 }

@@ -12,12 +12,14 @@ with its own Levenberg reg), and of the eager code around them in
   at the top of that file), compiled with the port's other kernels by one
   `nvcc` call at first use (`ops/_build.py`) and called through ctypes on
   PyTorch's current stream.  The (4, n) table sits in shared memory where
-  it fits beside the OCPs' slices, and else in global memory (the same
-  arithmetic, so the same bits): any table length runs.  It raises if the
-  kernel cannot be built or launched, or does not take the sizes (one
-  OCP's slice must fit a block's shared memory: horizon ≤ 160 in float32
-  and ≤ 79 in float64 at 6 rungs); there is no fallback.  CPU tensors go
-  to the plain version, `solve_reference`.
+  it fits beside the OCPs' slices, and else in global memory; past what a
+  block holds (one OCP's slice: horizon 160 in float32 and 79 in float64 at
+  6 rungs) the scalars and the slices move, in the same layout, to a
+  workspace in global memory that the wrapper allocates (`placement`).  The
+  same arithmetic runs in every placement, so they give the same bits, and
+  any table length, horizon and ladder runs.  It raises if the kernel
+  cannot be built or launched or the workspace cannot be allocated; there
+  is no fallback.  CPU tensors go to the plain version, `solve_reference`.
 * `solve_reference` — the same solve in plain PyTorch: `mpc/solver.py`'s
   `_solve` (AL rounds, accept/reject, reg escalation, multiplier update),
   whose iterations run `backward_forward_reference` /
@@ -50,7 +52,6 @@ NX = 8
 NU = 2
 NZ = NX + NU
 N_CON = 14
-MAX_LADDER = 32  # one lane per rung in a warp
 
 SCAL_FIELDS = (
     "rho", "reg", "s_max", "inv_ds", "h",  # h = dt / substeps
@@ -68,7 +69,8 @@ NS = len(SCAL_FIELDS)
 SOLVE_LAUNCHES = 0
 #: OCPs (warps) per block of the solve kernel: they share one copy of the
 #: lookup table.  A launch of B OCPs takes min(WARPS, B), and fewer where
-#: shared memory does not hold that many slices (long tables or horizons).
+#: shared memory does not hold that many slices (long tables or horizons)
+#: and the workspace is not needed.
 WARPS = 4
 MAX_WARPS = 4
 
@@ -269,9 +271,11 @@ def build():
     global _lib
     if _lib is None:
         lib = _build.load()
-        _build.bind(lib, _ENTRY.values(), 11, 10, 3)
+        _build.bind(lib, _ENTRY.values(), 12, 10, 3)
         lib.lto_ilqr_solve_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.lto_ilqr_solve_smem_bytes.restype = ctypes.c_longlong
+        lib.lto_ilqr_solve_workspace_elems.argtypes = [ctypes.c_int] * 4
+        lib.lto_ilqr_solve_workspace_elems.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -303,7 +307,7 @@ def _check_solve(cfg, z0, us_init, lam_init, pk: Pack):
         raise ValueError(f"unsupported constraint count {n_con}")
     if lead and lead[0] < 1:
         raise ValueError(f"unsupported batch size {lead[0]}")
-    if (not (1 <= L <= MAX_LADDER) or N < 1 or pk.tables.shape[-1] < 2 or cfg.substeps < 1
+    if (L < 1 or N < 1 or pk.tables.shape[-1] < 2 or cfg.substeps < 1
             or cfg.al_iters < 0 or cfg.ilqr_iters < 0):
         raise ValueError(f"unsupported sizes N={N} L={L} n={pk.tables.shape[-1]} "
                          f"substeps={cfg.substeps} al_iters={cfg.al_iters} ilqr_iters={cfg.ilqr_iters}")
@@ -313,33 +317,55 @@ def _check_solve(cfg, z0, us_init, lam_init, pk: Pack):
 def smem_bytes(dtype, warps: int, N: int, L: int, n_con: int, n: int,
                global_table: bool = False) -> int:
     """Dynamic shared memory of a block of `warps` OCPs with the table in
-    shared or (`global_table`) global memory (0: refused)."""
+    shared or (`global_table`) global memory (0: refused, or past a block)."""
     return int(build().lto_ilqr_solve_smem_bytes(torch.empty((), dtype=dtype).element_size(),
                                                  warps, N, L, n_con, n, int(global_table)))
 
 
+def workspace_elems(warps: int, N: int, L: int, n_con: int) -> int:
+    """Elements of one block's part of the workspace placement's workspace:
+    the scalars and `warps` OCP slices (0: refused)."""
+    return int(build().lto_ilqr_solve_workspace_elems(warps, N, L, n_con))
+
+
+class Placement(NamedTuple):
+    """Where a launch keeps its data: OCPs per block, the table in global
+    memory, and the scalars and slices in the global workspace (in the
+    layout they have in shared memory)."""
+    warps: int
+    global_table: bool
+    workspace: bool
+
+
 def placement(dtype, warps: int, N: int, L: int, n_con: int, n: int,
-              force_global: bool = False) -> tuple[int, bool]:
-    """(OCPs per block, table in global memory) of a launch: the table in
-    shared memory with the most OCPs per block up to `warps` that fit beside
-    it, else in global memory with the most that fit; raises where not even
-    one OCP's slice fits."""
-    for global_table in ((True,) if force_global else (False, True)):
-        W = next((w for w in range(warps, 0, -1)
-                  if smem_bytes(dtype, w, N, L, n_con, n, global_table)), 0)
-        if W:
-            return W, global_table
-    raise ValueError(f"the solve kernel does not hold one OCP of N={N} L={L} n_con={n_con} in "
-                     f"{dtype} in one block's shared memory")
+              force_global: bool = False, force_workspace: bool = False) -> Placement:
+    """The first that holds at least one OCP per block, with the most OCPs
+    per block up to `warps`: the table and the slices in shared memory; the
+    table in global memory and the slices in shared memory; the workspace
+    (table, scalars and slices in global memory, `warps` OCPs per block).
+    `force_global` skips the first, `force_workspace` the first two.
+    Raises where the kernel takes none: an OCP's slice past its 32-bit
+    indices."""
+    if not force_workspace:
+        for global_table in ((True,) if force_global else (False, True)):
+            W = next((w for w in range(warps, 0, -1)
+                      if smem_bytes(dtype, w, N, L, n_con, n, global_table)), 0)
+            if W:
+                return Placement(W, global_table, False)
+    if workspace_elems(warps, N, L, n_con):
+        return Placement(warps, True, True)
+    raise ValueError(f"the solve kernel does not take N={N} L={L} n_con={n_con} with {warps} OCPs per "
+                     "block: an OCP's slice would pass its 32-bit indices")
 
 
 def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
-            force_global: bool = False):
-    """Check, allocate the outputs, launch the solve kernel on the current
-    stream with `warps` OCPs per block (default min(WARPS, B); fewer where
-    shared memory does not hold them) and the table where `placement` puts
-    it (`force_global`: in global memory whatever its length), and count
-    the launch."""
+            force_global: bool = False, force_workspace: bool = False):
+    """Check, allocate the outputs (and the workspace where the placement
+    needs one), launch the solve kernel on the current stream with `warps`
+    OCPs per block (default min(WARPS, B); fewer where shared memory does
+    not hold them) in the placement `placement` picks (`force_global`,
+    `force_workspace`: the table, or everything, in global memory whatever
+    the sizes), and count the launch."""
     global SOLVE_LAUNCHES
     lead = _check_solve(cfg, z0, us_init, lam_init, pk)
     B = lead[0] if lead else 1
@@ -348,16 +374,26 @@ def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
     want = min(WARPS, B) if warps is None else warps
     if not 1 <= want <= MAX_WARPS:
         raise ValueError(f"warps={want}: the kernel takes 1 to {MAX_WARPS} OCPs per block")
-    W, global_table = placement(z0.dtype, want, N, L, n_con, n, force_global)
+    where = placement(z0.dtype, want, N, L, n_con, n, force_global, force_workspace)
     new = lambda *shape: torch.empty(lead + shape, dtype=z0.dtype, device=z0.device)
     outs = (new(N, NU), new(N + 1, NZ), new(N + 1, n_con), new(), new())
+    ws_ptr = None
+    if where.workspace:
+        elems = -(-B // where.warps) * workspace_elems(where.warps, N, L, n_con)
+        try:
+            ws = torch.empty(elems, dtype=z0.dtype, device=z0.device)
+        except torch.cuda.OutOfMemoryError as exc:
+            raise RuntimeError(
+                f"the solve kernel's workspace for B={B} N={N} L={L} n_con={n_con} "
+                f"({elems * z0.element_size()} bytes) cannot be allocated on {z0.device}") from exc
+        ws_ptr = ws.data_ptr()
     ptrs = [t.data_ptr() for t in (z0, us_init, lam_init, *pk, *outs)]
     with torch.cuda.device(z0.device):
         stream = torch.cuda.current_stream(z0.device).cuda_stream
         rc = getattr(lib, _ENTRY[z0.dtype])(
-            *ptrs, B, W, N, L, n_con, n, cfg.substeps, cfg.al_iters, cfg.ilqr_iters,
-            int(global_table), float(cfg.rho_init), float(cfg.rho_scale), float(cfg.reg_init),
-            stream)
+            *ptrs, ws_ptr, B, where.warps, N, L, n_con, n, cfg.substeps, cfg.al_iters,
+            cfg.ilqr_iters, int(where.global_table), float(cfg.rho_init), float(cfg.rho_scale),
+            float(cfg.reg_init), stream)
     if rc != 0:
         raise RuntimeError(f"solve kernel launch failed: cudaError_t {rc}")
     SOLVE_LAUNCHES += 1

@@ -56,7 +56,7 @@ class Spline2D:
     h: torch.Tensor  # (*lead, m) interval widths
     controls: torch.Tensor  # (*lead, 2, n_ctrl) control points (incl. duplicate)
     length: torch.Tensor  # (*lead,) total parameter (chord) length
-    closed: bool = True
+    closed: bool = False
 
     @property
     def batched(self) -> bool:
@@ -198,7 +198,7 @@ def _cyclic_moments_tridiag(p: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return _cyclic_thomas(h_im1 / 6.0, (h_im1 + h) / 3.0, h / 6.0, rhs.transpose(-1, -2)).transpose(-1, -2)
 
 
-def fit(points: torch.Tensor, closed: bool = True, method: str | None = None) -> Spline2D:
+def fit(points: torch.Tensor, closed: bool, method: str | None = None) -> Spline2D:
     """Fit an interpolating cubic spline through `points` (*lead, 2, n_pts),
     chord-length parameterised like the reference's
     `splprep(..., u=cumulative_distances(controls), k=3, s=0, per=closed)`

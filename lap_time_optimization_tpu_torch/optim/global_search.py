@@ -138,7 +138,7 @@ def _nonlinear_select(track: Track, vehicle, cands: torch.Tensor, n_refine: int,
 
 
 def nonlinear(track: Track, vehicle, seed: int = 0, n_random: int = 1024, n_refine: int = 10,
-              max_iter: int = 100, solver: str = "scan", mesh=None):
+              max_iter: int = 100, mesh=None, solver: str = "scan"):
     """Batched random search + batched gradient refinement (vs tbn.py:230-269).
     Returns (best alphas (n_dec,), best lap time).
 

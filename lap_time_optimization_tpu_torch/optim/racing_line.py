@@ -193,7 +193,7 @@ def minimise_optimal_compromise(track: Track, vehicle, eps_min: float = EPS_MIN,
 
 
 def minimise_lap_time(track: Track, vehicle, max_iter: int = 300, linesearch: str = "zoom",
-                      solver: str = "scan", chunk: int = 50):
+                      chunk: int = 50, solver: str = "scan"):
     """Minimise lap time directly through the differentiable profile (vs
     src/trajectory.py:128-146, which differentiates the 3-pass solve
     numerically), through `optimize.minimize_bounded_chunked` in chunks of

@@ -49,7 +49,7 @@ class Track(nn.Module):
     duplicated last cone) and `ns` the per-metre samples of the lap, both
     fixed at load time (reference src/track.py:24, src/trajectory.py:35)."""
 
-    def __init__(self, *, closed: bool, size: int, ns: int, name: str = "",
+    def __init__(self, *, closed: bool = True, size: int = 0, ns: int = 0, name: str = "",
                  decongest_stride: int = 3, **arrays):
         super().__init__()
         for f in FIELDS:

@@ -171,9 +171,12 @@ def test_backward_forward_dispatch_and_checks(base):
         ilqr._check_solve(cfg, z0, us.t().contiguous().t(), lams, pk)
     with pytest.raises(TypeError, match="float32 or float64"):
         ilqr._check_solve(cfg, z0.half(), us, lams, pk)
+    # any ladder length runs (past 32 rungs a lane runs several); none is refused
+    assert ilqr._check_solve(dataclasses.replace(cfg, n_linesearch=33), z0, us, lams,
+                             pk._replace(alphas=ilqr.ladder(33, torch.float64, "cpu"))) == ()
     with pytest.raises(ValueError, match="unsupported sizes"):
-        ilqr._check_solve(dataclasses.replace(cfg, n_linesearch=33), z0, us, lams,
-                          pk._replace(alphas=ilqr.ladder(33, torch.float64, "cpu")))
+        ilqr._check_solve(dataclasses.replace(cfg, n_linesearch=0), z0, us, lams,
+                          pk._replace(alphas=ilqr.ladder(0, torch.float64, "cpu")))
     with pytest.raises(NotImplementedError, match="hessian_mode"):
         ilqr._check_solve(dataclasses.replace(cfg, hessian_mode="exact"), z0, us, lams, pk)
     assert ilqr._lib is None

@@ -20,13 +20,19 @@ multipliers: lam = max(0, lam + ρ g) turns a state difference d into ρ·d
 plain float32 solve itself lies up to 7.1e-3 from the float64 one on the
 same inputs (chip_smoke.py prints both).
 Libdevice trig, fused multiply-adds and the summation order differ.
-The table's placements: at 846 samples the wrapper keeps it in shared
+The placements: at 846 samples the wrapper keeps the table in shared
 memory, and the launch with the table forced into global memory gives the
 same bits; the artifacts resampled to 20,832 samples (past the shared
 placement's 13,468 in float32 and 6,204 in float64) run with the table in
-global memory against the plain solve at the tolerances above; and only
-one OCP's slice bounds the sizes then (horizon 160 in float32, 79 in
-float64, at 6 rungs and 14 rows, whatever the table's length).
+global memory against the plain solve at the tolerances above.  Past one
+OCP's slice in a block (horizon 160 in float32, 79 in float64, at 6 rungs
+and 14 rows) the scalars and the slices live, in the same layout, in a
+global workspace: forced at horizon 10 it gives the shared placement's
+bits, at horizon 160 (float32) and 79 (float64) too; horizon 80 (float64)
+runs in it against the plain solve, and horizon 200 a batch instance by
+instance as its single launches.
+Ladders past 32 rungs (a lane runs rungs r and r + 32) match the plain
+solve, also with the ladder reversed so that the chosen rung lies past 32.
 Without a CUDA device every case skips: the kernel has no CPU mode.
 """
 
@@ -172,7 +178,7 @@ def test_cuda_solve_global_table_is_the_shared_one(dtype, batch):
     _need_cuda()
     model, p, pk, args = _setup(dtype, True, True, CFG, batch=batch)
     n_con, n = args[2].shape[-1], pk.tables.shape[-1]
-    assert ilqr.placement(dtype, ilqr.MAX_WARPS, 10, CFG.n_linesearch, n_con, n) == (4, False)
+    assert ilqr.placement(dtype, ilqr.MAX_WARPS, 10, CFG.n_linesearch, n_con, n) == (4, False, False)
     shared = ilqr.solve(model, p, CFG, *args, pk)
     forced = ilqr._launch(CFG, *args, pk, force_global=True)
     assert all(torch.equal(g, s) for g, s in zip(forced, shared))
@@ -190,7 +196,7 @@ def test_cuda_solve_long_table_matches_plain(dtype):
     model = BicycleModel(load_vehicle("MX5"), track).to("cuda", dtype)
     p = S.OCPParams.reference(dtype, "cuda", lateral_margin=0.05)
     pk = ilqr.pack(model, p, CFG)
-    assert ilqr.placement(dtype, 4, 10, CFG.n_linesearch, 14, 20832) == (4, True)
+    assert ilqr.placement(dtype, 4, 10, CFG.n_linesearch, 14, 20832) == (4, True, False)
     rng = np.random.default_rng(2)
     x0 = np.tile(runner.X0_REFERENCE, (4, 1))
     x0[:, 0] = [0.0, 300.0, 600.0, float(track.s_max) - 3.0]
@@ -204,14 +210,83 @@ def test_cuda_solve_long_table_matches_plain(dtype):
     assert all(torch.equal(g[1], o) for g, o in zip(got, one))
 
 
+def _loop_start(dtype, cfg):
+    """Model, OCP parameters, pack and the zero warm start a closed loop's
+    first solve takes (`runner._presolve`) from the reference state."""
+    model, p, pk, _ = _setup(dtype, False, False, cfg)
+    z0 = torch.zeros(10, dtype=dtype, device="cuda")
+    z0[:8] = torch.as_tensor(runner.X0_REFERENCE, dtype=dtype)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device="cuda")
+    return model, p, pk, (z0, zeros(cfg.horizon, 2), zeros(cfg.horizon + 1, 14))
+
+
 @pytest.mark.cuda
-def test_cuda_solve_refuses_only_a_slice_past_shared_memory():
-    """With the table in global memory only one OCP's slice bounds the
-    sizes: horizon 160 fits in float32 and 79 in float64 (6 rungs, 14
-    rows), one more does not, whatever the table's length."""
+@pytest.mark.parametrize("dtype, top", [(torch.float32, 160), (torch.float64, 79)], ids=["float32", "float64"])
+def test_cuda_solve_workspace_past_shared_memory_matches_plain(dtype, top):
+    """One OCP's slice fits a block up to horizon 160 in float32 and 79 in
+    float64 (6 rungs, 14 rows); one more takes the workspace, whatever the
+    table's length.  At `for_horizon(top)` the workspace forced gives the
+    bits of the slice in shared memory.  At top + 1, from a closed loop's
+    zero warm start, float64 matches the plain solve at 1e-9; in float32
+    the plain solve itself moves by more than 1e-4 under one ulp of z0
+    there, so its outputs are held to be finite."""
     _need_cuda()
-    for dtype, top in ((torch.float32, 160), (torch.float64, 79)):
-        for n in (846, 20832, 1_000_000):
-            assert ilqr.placement(dtype, 1, top, 6, 14, n)[0] == 1
-            with pytest.raises(ValueError, match="does not hold one OCP"):
-                ilqr.placement(dtype, 1, top + 1, 6, 14, n)
+    for n in (846, 20832, 1_000_000):
+        assert not ilqr.placement(dtype, 1, top, 6, 14, n).workspace
+        where = ilqr.placement(dtype, 1, top + 1, 6, 14, n)
+        assert where == (1, True, True)
+    assert ilqr.placement(dtype, 4, top + 1, 6, 14, 846) == (4, True, True)
+    cfg = S.SolverConfig.for_horizon(top)
+    model, p, pk, args = _loop_start(dtype, cfg)
+    shared = ilqr.solve(model, p, cfg, *args, pk)
+    forced = ilqr._launch(cfg, *args, pk, force_workspace=True)
+    assert all(torch.equal(f, s) for f, s in zip(forced, shared))
+    cfg = S.SolverConfig.for_horizon(top + 1)
+    model, p, pk, args = _loop_start(dtype, cfg)
+    got = ilqr.solve(model, p, cfg, *args, pk)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    if dtype == torch.float64:
+        _assert_close(got, ilqr.solve_reference(model, p, cfg, *args, pk), dtype)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("batch", [None, BATCH], ids=["B1", f"B{BATCH}"])
+def test_cuda_solve_workspace_is_the_shared_placement(dtype, batch):
+    """At horizon 10 the slices sit in shared memory; the same launch with
+    the workspace forced (the scalars and the slices in global memory in
+    the same layout, the table in global memory) gives the same bits."""
+    _need_cuda()
+    model, p, pk, args = _setup(dtype, True, True, CFG, batch=batch)
+    shared = ilqr.solve(model, p, CFG, *args, pk)
+    forced = ilqr._launch(CFG, *args, pk, force_workspace=True)
+    assert all(torch.equal(g, s) for g, s in zip(forced, shared))
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_cuda_solve_long_ladder_matches_plain(dtype):
+    """48 rungs: lanes 0-15 run two rungs each.  With the ladder's step
+    sizes reversed the full step, the usual choice, is rung 47."""
+    _need_cuda()
+    cfg = S.SolverConfig(horizon=10, n_linesearch=48)
+    model, p, pk, args = _setup(dtype, True, False, cfg)
+    for alphas in (pk.alphas, pk.alphas.flip(0)):
+        pk_l = pk._replace(alphas=alphas.contiguous())
+        got = ilqr.solve(model, p, cfg, *args, pk_l)
+        _assert_close(got, ilqr.solve_reference(model, p, cfg, *args, pk_l), dtype)
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_cuda_solve_workspace_batch_is_the_single_launch_per_instance(dtype):
+    """At horizon 200 (the workspace in both dtypes) instance b of a batch
+    of 32 equals the B=1 launch on instance b, bit for bit."""
+    _need_cuda()
+    cfg = S.SolverConfig.for_horizon(200)
+    model, p, pk, args = _setup(dtype, False, False, cfg, batch=BATCH)
+    assert ilqr.placement(dtype, 4, 200, 6, 14, 846).workspace
+    got = ilqr.solve(model, p, cfg, *args, pk)
+    for b in range(BATCH):
+        one = ilqr.solve(model, p, cfg, *(a[b] for a in args), pk)
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one)), b
