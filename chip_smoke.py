@@ -43,12 +43,15 @@ Phases:
    block, and the plain solve; at B=1 also without iLQR iterations and
    with 1 RK4 substep, to split the solve's time;
 4. single stream: a 5-cycle float64 closed loop on the card (solve kernel)
-   against the same loop on the CPU (plain solve), then a short warm-up and the
-   timed closed loop, whose solve launches are counted (one per cycle); the
+   against the same loop on the CPU (plain solve), then a warm-up of G
+   cycles (which captures the CUDA graph of G = `runner.GRAPH_CYCLES`
+   cycles) and the timed closed loop, its graphs replayed, whose solve
+   launches are counted (one per cycle); the
    applied violation read with both pairings (`runner.applied_violation`),
    gated on the JAX package's;
 5. fleet: a 3-cycle float64 batched loop (4 instances) on the card against
-   the CPU, then the timed 32-instance loop, with its launches counted
+   the CPU, then a warm-up of G cycles and the timed 32-instance loop
+   (graphed), with its launches counted
    (one per cycle) and both readings of the applied violation;
 6. nonlinear search: the 1024-candidate selection timed alone, then the
    whole search, its lap by the scan oracle gated below the published
@@ -116,7 +119,9 @@ Phases:
    Bayesian round, the nonlinear selection) for 1, 4 and 16 segments,
    float32 and float64, by its device time in torch.profiler, and the
    wrapper and the twin per call, and at phase 10's long selections; then,
-   with --profile, the profiles of both NMPC loops.  Phases 11-12 come
+   with --profile, the profiles of both NMPC loops, graphed (G cycles) and
+   eager (3 cycles), and of one graphed chunk of the h20 lap (f64 and f32),
+   each with the device's busy share of its unprofiled wall time.  Phases 11-12 come
    after every driven path, so the paths run in a fresh process, and a
    profiler session, which slows the process's later launches, comes after
    every timed path;
@@ -141,6 +146,21 @@ Phases:
    N = 100 f64 (workspace) and 48 rungs, and the workspace forced at equal
    horizon (h10 and N=160) beside the wrapper's placement;
 14. the summary lines; the last one is {"ok": true, "device": {...}}.
+15. the graphed loops (run after phase 13, before 11-12): every NMPC loop
+   of phases 4, 5, 9, 10 and 13 that ran graphed through its entry point
+   (the 500-cycle single stream, the 32 x 100 fleet, 100 cycles on the
+   20,832-sample table, the 25-cycle `accurate()` loop, and the h20 lap in
+   chunks of 190, f64 and f32) run again eagerly (`runner._loop` /
+   `runner._closed_loop_chunked` with 0 cycles per graph) and held to it
+   bit for bit; the single stream and the fleet eager and graphed in turns;
+   the capture (warm-up, recording, instantiation, pool bytes) and the rate
+   at G = 10, 25, 50 and 100 cycles per graph; the captures so far.
+
+The NMPC loops on the card replay CUDA graphs of G control cycles
+(`mpc/runner`); each phase's warm-up call captures the graphs its timed
+call replays, and the solve-kernel launches they count are the cycles'
+(`ops.ilqr.SOLVE_LAUNCHES`; the solves of warm-ups and captures count in
+`runner.CAPTURE_LAUNCHES`).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -650,33 +670,41 @@ def cuda_ms(fn, n):
     return start.elapsed_time(stop) / n
 
 
-def profile_cycles(run, name, kernel, out_dir, cycle_ms, steps=3):
+def profile_cycles(run, name, kernel, out_dir, steps):
     """torch.profiler over `run(steps)`, a short closed loop (presolve +
-    `steps` cycles): device busy time and kernel count per solve, the iLQR
-    kernel's share (device kernels whose name holds `kernel`), and the busy
-    share of `cycle_ms`, the unprofiled time per control cycle (the
-    profiler's own host cost makes its wall clock useless for that)."""
+    `steps` cycles) after a warm-up call (which captures its graphs) and an
+    unprofiled call that sets its wall time: device busy time and kernel
+    count per solve, the iLQR kernel's share (device kernels whose name
+    holds `kernel`), and the device's busy share of the unprofiled wall
+    time (the profiler's own host cost makes its wall clock useless for
+    that)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
+    run(steps)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
         torch.cuda.synchronize()
     averages = prof.key_averages()
     device = [a for a in averages if a.device_type == DeviceType.CUDA]
     solves = steps + 2
-    busy_ms = sum(a.self_device_time_total for a in device) / 1e3 / solves
+    busy_ms = sum(a.self_device_time_total for a in device) / 1e3
     kernels = sum(a.count for a in device) / solves
-    ilqr_ms = sum(a.self_device_time_total for a in device if kernel in a.key) / 1e3 / solves
+    ilqr_ms = sum(a.self_device_time_total for a in device if kernel in a.key) / 1e3
     table = averages.table(sort_by="self_device_time_total", row_limit=30)
     with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as fh:
         fh.write(table)
-    print(f"profile {name} ({solves} solves): device busy {busy_ms:.2f} ms per solve "
-          f"({100 * busy_ms / cycle_ms:.1f}% of the unprofiled {cycle_ms:.1f} ms per control "
-          f"cycle), {kernels:.0f} device kernels per solve, {kernel} {ilqr_ms:.2f} ms "
-          f"per solve ({100 * ilqr_ms / busy_ms:.1f}% of busy)")
+    print(f"profile {name} ({steps} cycles, {solves} solves): device busy {busy_ms / solves:.3f} ms per solve, "
+          f"{100 * busy_ms / wall_ms:.1f}% of the unprofiled {wall_ms / steps:.3f} ms per control cycle "
+          f"({wall_ms:.1f} ms for the call); {kernels:.0f} device kernels per solve, "
+          f"{kernels * solves / steps:.0f} per cycle (the presolve's included), {kernel} "
+          f"{ilqr_ms / solves:.3f} ms per solve ({100 * ilqr_ms / max(busy_ms, 1e-9):.1f}% of busy)")
 
 
 SOLVE_FIELDS = ("us", "zs", "lam", "cost", "max_violation")
@@ -767,6 +795,8 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
           f"{out['accurate_ms']:.4f} ms; smem per block "
           f"{[ilqr.smem_bytes(torch.float32, W, 10, 8, 14, 846) for W in (1, 2, 4)]} B")
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device=device)
+    runner.closed_loop(model, p, acc, x0, ACCURATE_STEPS)  # warm-up: the graph of its cycles
+    torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     sim = runner.closed_loop(model, p, acc, x0, ACCURATE_STEPS)
@@ -785,6 +815,7 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
         raise AssertionError("the closed loop at accurate() fails its gates")
     launches += counts[0]
     out["accurate_hz"] = ACCURATE_STEPS / wall
+    out["accurate_loop"] = (model, p, acc, x0, sim)
 
     # exact Hessians: the plain solve on the card against the CPU, float64
     exact = S.SolverConfig(horizon=10, hessian_mode="exact")
@@ -810,7 +841,8 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     cfg = S.SolverConfig(horizon=10)
     model, p = load_main_path(device, torch.float32)
     x0b = torch.as_tensor(x0b_np, dtype=torch.float32, device=device)
-    runner.closed_loop_fleet(model, p, cfg, x0b, 2, mesh)  # warm-up: the NCCL communicator
+    # warm-up: the NCCL communicator and the graph of the timed run's cycles
+    runner.closed_loop_fleet(model, p, cfg, x0b, MESH_FLEET_STEPS, mesh)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -992,7 +1024,7 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
             worst = max(worst, err)
     lmodel, lp, pk = models[torch.float32]
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device=device)
-    runner.closed_loop(lmodel, lp, cfg, x0, 3)  # warm-up
+    runner.closed_loop(lmodel, lp, cfg, x0, runner.GRAPH_CYCLES)  # warm-up: the graph of G cycles
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1013,11 +1045,12 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
         raise AssertionError("the closed loop on the long table fails its gates")
     solve_n += counts[0]
     out["long_hz"] = LONG_STEPS / wall
+    out["long_loop"] = (lmodel, lp, cfg, x0, sim)
 
     # (c) the fleet on the same table, gated on the instances the JAX
     # package keeps in the band there (fault R2)
     x0b = torch.as_tensor(x0b_np, dtype=torch.float32, device=device)
-    runner.closed_loop_batch(lmodel, lp, cfg, x0b, 2)  # warm-up
+    runner.closed_loop_batch(lmodel, lp, cfg, x0b, LONG_FLEET_STEPS)  # warm-up: the graph of its cycles
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1339,7 +1372,7 @@ def phase_long_horizons(device):
     for dtype in (torch.float64, torch.float32):
         model, p = load_main_path(device, dtype)
         x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=dtype, device=device)
-        runner.closed_loop_chunked(model, p, cfg, x0, 3, chunk=LAP_CHUNK)  # warm-up
+        runner.closed_loop_chunked(model, p, cfg, x0, LAP_CHUNK, chunk=LAP_CHUNK)  # warm-up: a chunk's graphs
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -1350,6 +1383,7 @@ def phase_long_horizons(device):
         applied, monotone, lapped, mu, finite = lap_gates(model, p, sim, LAP_WINDOW)
         meets = applied < 1e-2 and monotone and lapped and mu < LAP_MU and finite
         out[f"lap_hz_{dt(dtype)}"] = LAP_CYCLES / wall
+        out[f"lap_{dt(dtype)}"] = (model, p, cfg, x0, sim)
         print(f"h20 lap (for_horizon(20), {LAP_CYCLES} cycles of closed_loop_chunked, chunk {LAP_CHUNK}, "
               f"{dt(dtype)}): {wall:.3f} s = {LAP_CYCLES / wall:.2f} Hz; progress {float(sim.xs[-1, 0]):.2f} m of "
               f"{float(model.track.s_max):.2f}; applied violation over the first {LAP_WINDOW} cycles {applied:.3e} "
@@ -1397,6 +1431,77 @@ def phase_long_horizons(device):
     return launches, out
 
 
+def phase_graphs(loops, main, steps, batch_steps):
+    """Phase 15: the graphed loops against the eager loop on the card.
+    `loops`: (label, (model, p, cfg, x0, graphed result), chunk or None) of
+    the loops the earlier phases ran through their public entry points,
+    each held bit for bit to the same loop run eagerly (`runner._loop` /
+    `_closed_loop_chunked` with 0 cycles per program).  Then, on the main path (`main`: model, p,
+    cfg, x0, x0b), the single stream (`steps` cycles) and the fleet
+    (`batch_steps`) eager and graphed in turns, and the capture and the rate
+    at G = 10, 25, 50 and 100 cycles per graph."""
+    from lap_time_optimization_tpu_torch.mpc import runner
+
+    t_phase = time.perf_counter()
+    for label, (model, p, cfg, x0, graphed), chunk in loops:
+        n = graphed.costs.shape[-1]
+        t0 = time.perf_counter()
+        if chunk:
+            eager = runner._closed_loop_chunked(model, p, cfg, x0, n, chunk, None, 0)
+        else:
+            eager = runner._loop(model, p, cfg, x0, n, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = all(torch.equal(g, e) for g, e in zip(graphed, eager))
+        worst = max(float((g.double() - e.double()).abs().max()) for g, e in zip(graphed, eager))
+        print(f"graphed vs eager, {label}: bit-equal {same} (max |d| {worst:.3e}); eager {n / wall:.2f} "
+              f"cycles/s")
+        if not same:
+            raise AssertionError(f"{label}: the graphed loop differs from the eager loop")
+
+    # the main path's rates in turns: eager, graphed, graphed, eager
+    model, p, cfg, x0, x0b = main
+    for label, start, n in (("single stream", x0, steps), ("fleet", x0b, batch_steps)):
+        rates = []
+        for cycles in (0, runner.GRAPH_CYCLES, runner.GRAPH_CYCLES, 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner._loop(model, p, cfg, start, n, cycles)
+            torch.cuda.synchronize()
+            rates.append(start[..., 0].numel() * n / (time.perf_counter() - t0))
+        unit = "Hz" if start.dim() == 1 else "solves/s"
+        print(f"{label} f32 in turns (eager, graphed G={runner.GRAPH_CYCLES}, graphed, eager): "
+              + ", ".join(f"{r:.2f}" for r in rates) + f" {unit}")
+
+    # G: a capture and then a timed run of the single stream and the fleet
+    # at each G (the G of the timed phases is already captured: its
+    # capture's own numbers are read back)
+    for G in (10, 25, 50, 100):
+        row = []
+        for start, n in ((x0, steps), (x0b, batch_steps)):
+            key = runner._program_key(model, p, cfg, start, min(G, n))
+            captures = runner.GRAPH_CAPTURES
+            t0 = time.perf_counter()
+            runner._loop(model, p, cfg, start, n, G)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            runner._loop(model, p, cfg, start, n, G)
+            torch.cuda.synchronize()
+            rate = start[..., 0].numel() * n / (time.perf_counter() - t0)
+            prog = runner._PROGRAMS[key]
+            row.append(f"B={start[..., 0].numel()} {n} cycles: capture (warm-up cycle {prog.warmup_s:.3f} s, record "
+                       f"{prog.record_s:.3f} s, end and instantiate {prog.instantiate_s:.3f} s), pool "
+                       f"{prog.pool_bytes / 2**20:.1f} MiB, {runner.GRAPH_CAPTURES - captures} captured in this "
+                       f"run, first run {first:.3f} s, then {rate:.2f} solves/s")
+        print(f"G={G}: " + "; ".join(row))
+    pools = sum(prog.pool_bytes for prog in runner._PROGRAMS.values() if prog.graph is not None)
+    print(f"graph captures so far {runner.GRAPH_CAPTURES} (programs cached {len(runner._PROGRAMS)}, at most "
+          f"{runner._MAX_PROGRAMS}); their warm-up and recorded solve launches {runner.CAPTURE_LAUNCHES}; the cached "
+          f"graphs' pools {pools / 2**20:.1f} MiB; memory reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
 def fingerprint(device) -> dict:
     """SHA-256 of both kernels' outputs through their wrappers on phase 3's
     solve inputs (three single states and 32 over the lap, three model
@@ -1405,7 +1510,8 @@ def fingerprint(device) -> dict:
     with hashes of those inputs, the kernels' times at the main paths'
     shapes: the solve kernel per call at B = 1 and 32 (CUDA events) and
     kernel 3 at B=1024 (device time), and the NMPC rates of phases 4-5
-    (host clock).  Only public entry points that every slice of the port
+    (host clock), twice each, through the public loops and, in turns with
+    them, the eager loop where the tree has `runner._loop`.  Only public entry points that every slice of the port
     has are used, so the same script run beside an earlier tree shows
     whether a change kept the kernels' bits and the loops' rates."""
     import hashlib
@@ -1441,20 +1547,28 @@ def fingerprint(device) -> dict:
                                          0.0 if B == 1 else 2.0, 3)
                     out[f"solve_ms_B{B}"] = cuda_ms(lambda: ilqr.solve(model, p, cfg, *sargs, pk), 20)
     # the single stream (500 cycles) and the fleet (32 x 100) of phases 4-5,
-    # before kernel 3's profiler session, which slows later launches
+    # before kernel 3's profiler session, which slows later launches: the
+    # public loops (graphed on the card where the tree has graphs) and, where
+    # the tree has it, the eager loop (`runner._loop(..., 0)`), in turns
+    # (eager, public, public, eager); each list holds its two readings
     model, p = load_main_path(device, torch.float32)
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device=device)
     x0b = torch.as_tensor(np.tile(runner.X0_REFERENCE, (BATCH, 1)) + 0.01 * np.arange(BATCH)[:, None],
                           dtype=torch.float32, device=device)  # bench.py:81-83
+    eager_loop = getattr(runner, "_loop", None)
     for name, loop, steps, B in (("single_stream_hz", runner.closed_loop, 500, 1),
                                  ("fleet_solves_per_s", runner.closed_loop_batch, 100, BATCH)):
         start = x0 if B == 1 else x0b
-        loop(model, p, cfg, start, 3)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loop(model, p, cfg, start, steps)
-        torch.cuda.synchronize()
-        out[name] = B * steps / (time.perf_counter() - t0)
+        loop(model, p, cfg, start, getattr(runner, "GRAPH_CYCLES", 3))  # warm-up: the graph of G cycles
+        turns = [("eager_" + name, lambda: eager_loop(model, p, cfg, start, steps, 0)),
+                 (name, lambda: loop(model, p, cfg, start, steps))]
+        turns = turns + turns[::-1] if eager_loop is not None else turns[1:] * 2
+        for key, run in turns:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out.setdefault(key, []).append(B * steps / (time.perf_counter() - t0))
     n_dec = search_setup("cpu", torch.float64)[0].n_decongested
     alphas_np = np.random.default_rng(7).uniform(0.0, gs.ALPHA_HI, (K3_BATCH, n_dec))
     for dtype in (torch.float64, torch.float32):
@@ -1479,7 +1593,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=500,
                     help="timed single-stream control cycles; the fleet runs max(10, steps // 5)")
     ap.add_argument("--profile", type=str, default=None,
-                    help="directory for torch.profiler summaries of 3 control cycles of each loop")
+                    help="directory for torch.profiler summaries of each NMPC loop, graphed and eager")
     ap.add_argument("--fingerprint", action="store_true",
                     help="print only the kernels' output hashes and times at the main paths' shapes "
                          "(`fingerprint`), to hold two trees against each other, and exit")
@@ -1600,7 +1714,7 @@ def main(argv=None) -> int:
         raise AssertionError("closed loop on the card disagrees with the CPU reference")
 
     x0 = torch.as_tensor(x0_np, dtype=torch.float32, device=device)
-    runner.closed_loop(model, p, cfg, x0, 3)  # warm-up: allocator, cuBLAS handles
+    runner.closed_loop(model, p, cfg, x0, runner.GRAPH_CYCLES)  # warm-up: the graph of G cycles
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1642,7 +1756,7 @@ def main(argv=None) -> int:
         raise AssertionError("batched loop on the card disagrees with the CPU reference")
 
     x0b = torch.as_tensor(x0b_np, dtype=torch.float32, device=device)
-    runner.closed_loop_batch(model, p, cfg, x0b, 2)  # warm-up at B=32
+    runner.closed_loop_batch(model, p, cfg, x0b, runner.GRAPH_CYCLES)  # warm-up: the graph of G cycles at B=32
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1817,15 +1931,25 @@ def main(argv=None) -> int:
         raise AssertionError("NMPC progress on the CLI's artifacts is not monotone")
 
     # ---------------------------------------------------------------- phase 9
-    p9_solve, p9_k3, _ = phase_parallel(device, x0b_np, nl, best_x, best_f)
+    p9_solve, p9_k3, p9_out = phase_parallel(device, x0b_np, nl, best_x, best_f)
 
     # ---------------------------------------------------------------- phase 10
-    p10_solve, p10_k3, _, long_k3, p10_worst = phase_long_tracks(device, cfg, conf, x0b_np)
+    p10_solve, p10_k3, p10_out, long_k3, p10_worst = phase_long_tracks(device, cfg, conf, x0b_np)
     worst_f32_abs = max(worst_f32_abs, p10_worst)
 
     # ---------------------------------------------------------------- phase 13
     # before phases 11-12, whose profiler sessions slow later launches
-    p13_solve, _ = phase_long_horizons(device)
+    p13_solve, p13_out = phase_long_horizons(device)
+
+    # ---------------------------------------------------------------- phase 15
+    # also before phases 11-12
+    loops = [(f"single stream, {args.steps} cycles f32", (model, p, cfg, x0, sim), None),
+             (f"fleet, {BATCH} x {batch_steps} cycles f32", (model, p, cfg, x0b, fleet), None),
+             (f"{LONG_STEPS} cycles on the {LONG_NS}-sample table f32", p10_out["long_loop"], None),
+             (f"accurate(), {ACCURATE_STEPS} cycles f32", p9_out["accurate_loop"], None),
+             *((f"h20 lap, {LAP_CYCLES} cycles of closed_loop_chunked in chunks of {LAP_CHUNK} {name}",
+                p13_out[f"lap_{name}"], LAP_CHUNK) for name in ("float64", "float32"))]
+    phase_graphs(loops, (model, p, cfg, x0, x0b), args.steps, batch_steps)
 
     # ---------------------------------------------------------------- phase 11
     # Kernel 3's checks and timings come after every driven path, so that the
@@ -1912,10 +2036,18 @@ def main(argv=None) -> int:
               f"(W={vb.warps_for(B_l, n_sm)}, P={vb.SEGMENTS}): {t_l:.4f} ms; at N={n_samp} in shared memory "
               f"{k3_dev[dtype, K3_BATCH, vb.SEGMENTS]:.4f} ms; bound {bound_l[0] * 1e3:.3f} us ({bound_l[1]})")
     if args.profile:
-        profile_cycles(lambda n: runner.closed_loop(model, p, cfg, x0, n), "closed_loop",
-                       "ilqr_solve_kernel", args.profile, 1e3 * wall / args.steps)
-        profile_cycles(lambda n: runner.closed_loop_batch(model, p, cfg, x0b, n), "closed_loop_batch",
-                       "ilqr_solve_kernel", args.profile, 1e3 * bwall / batch_steps)
+        # the graphed loops (5 replays of G cycles), the eager loops for the
+        # parent's reading (3 cycles), and one chunk of the graphed h20 lap
+        G = runner.GRAPH_CYCLES
+        for tag, cycles, steps in (("graphed", G, 5 * G), ("eager", 0, 3)):
+            profile_cycles(lambda n: runner._loop(model, p, cfg, x0, n, cycles), f"closed_loop_{tag}",
+                           "ilqr_solve_kernel", args.profile, steps)
+            profile_cycles(lambda n: runner._loop(model, p, cfg, x0b, n, cycles), f"closed_loop_batch_{tag}",
+                           "ilqr_solve_kernel", args.profile, steps)
+        for dtype in (torch.float64, torch.float32):
+            lap_model, lap_p, lap_cfg, lap_x0, _ = p13_out[f"lap_{str(dtype)[6:]}"]
+            profile_cycles(lambda n: runner.closed_loop_chunked(lap_model, lap_p, lap_cfg, lap_x0, n, chunk=n),
+                           f"h20_lap_chunk_{str(dtype)[6:]}", "ilqr_solve_kernel", args.profile, LAP_CHUNK)
 
     # ---------------------------------------------------------------- phase 14
     print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}, "

@@ -7,16 +7,36 @@ fleet sharded over a mesh's 'dp' ranks (`closed_loop_fleet`).  Each
 control cycle warm-starts the AL-iLQR from the shifted previous solution,
 applies the first input, clipped to the actuator rate and box limits, and
 integrates the plant (plant == model, like the reference's do_mpc simulator
-over the same ODE).  The loop is eager PyTorch on the model's device; it
-makes no host sync, so outputs are written into preallocated device tensors
-and only checkpoints, `applied_violation` and `to_sim_results` copy to the
-host.  The cycle code takes any leading instance shape: the batched loop
-runs it on (B, ...) with `solver.solve_batch`.
+over the same ODE).  The cycle code takes any leading instance shape: the
+batched loop runs it on (B, ...) with `solver.solve_batch`.
+
+On a CUDA device a Gauss-Newton loop is the counterpart of the JAX runner's
+single `lax.scan` and `_const_jit`: its cycles run as captured CUDA graphs
+of `GRAPH_CYCLES` cycles each (`_Program`), replayed from the host with no
+sync, so the host no longer enqueues the ~735 small kernels of every cycle
+around the solve kernel.  A program reads its carry from, and writes it
+back in place to, fixed tensors and writes its cycles' outputs into fixed
+(..., G, ·) buffers, which one copy per field moves into the caller's
+`SimResult` after each replay; a tail of fewer cycles gets a program of its
+own length.  Programs are cached by everything their graph depends on
+(`_program_key`: both model flags, the whole `SolverConfig`, dtype, device,
+the leading shape, G and the identity and version of every buffer of the
+model and the OCP parameters), so a model that differs only in its flags
+never replays another's graph (the JAX key's fault R1).  A capture that
+fails raises: there is no fallback.  The graph replays the kernels the
+eager loop launches, so the trajectory is the eager loop's bit for bit,
+whatever G.  The eager loop (`_advance`) is the plain version: the CPU runs
+it, and on the card exact-Hessian loops run it (`hessian_mode="exact"`:
+its plain `torch.func` solve is ~11 s of launch-bound eager ops per solve,
+far too many graph nodes).  The presolve (two solves) is eager everywhere.
+Nothing syncs with the host but checkpoints, `applied_violation` and
+`to_sim_results`.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,7 +63,13 @@ class SimResult(NamedTuple):
     sdot: torch.Tensor  # (steps,) track progress rate per step
 
 
-def _presolve(model, p, cfg, x0, solve=solver_mod.solve, pack=None):
+def _solve(x):
+    """The solve of a loop from states x: `solver.solve` for one OCP (x
+    (NX,)), `solver.solve_batch` for a fleet (x (B, NX))."""
+    return solver_mod.solve_batch if x.dim() > 1 else solver_mod.solve
+
+
+def _presolve(model, p, cfg, x0, pack=None):
     """Burn in the t=0 warm start (do_mpc's set_initial_guess analogue,
     reference src/mpc.py:118) and return the initial carry.  `pack`: the
     solve's constants (`ops.ilqr.pack`), built by the calling loop."""
@@ -54,17 +80,19 @@ def _presolve(model, p, cfg, x0, solve=solver_mod.solve, pack=None):
     u_prev = x0.new_zeros(lead + (NU,))
     z0_init = torch.cat([x0, u_prev], dim=-1)
     for _ in range(2):
-        warm = solve(model, p, cfg, z0_init, us_warm, lam_warm, pack)
+        warm = _solve(x0)(model, p, cfg, z0_init, us_warm, lam_warm, pack)
         us_warm, lam_warm = warm.us, warm.lam
     return (x0, us_warm, lam_warm, u_prev)
 
 
-def _step_fn(model, p, cfg, carry, solve=solver_mod.solve, pack=None):
+def _step_fn(model, p, cfg, carry, pack=None):
     """One control cycle: solve, clip the applied input, integrate the plant,
-    shift the warm start.  Returns (carry, (x_next, u0, cost, violation, sdot))."""
+    shift the warm start.  Returns (carry, (x_next, u0, cost, violation, sdot)).
+    A fleet's cycle is one `solver.solve_batch` for all B instances, then the
+    elementwise clip and the plant step on (B, ...)."""
     x, us_warm, lam_warm, u_prev = carry
     z0 = torch.cat([x, u_prev], dim=-1)
-    res = solve(model, p, cfg, z0, us_warm, lam_warm, pack)
+    res = _solve(x)(model, p, cfg, z0, us_warm, lam_warm, pack)
     # actuator saturation: the AL solver leaves O(1e-2) slack on the input
     # boxes at fixed iteration budgets; the physical actuators (and the
     # reference's hard NLP bounds, src/mpc/controller.py:79-103) cannot
@@ -85,17 +113,6 @@ def _step_fn(model, p, cfg, carry, solve=solver_mod.solve, pack=None):
     return (x_next, us_next, lam_next, u0), out
 
 
-def _presolve_batch(model, p, cfg, x0_b, pack=None):
-    """Batched burn-in (see `_presolve`): x0_b (B, NX), through `solver.solve_batch`."""
-    return _presolve(model, p, cfg, x0_b, solver_mod.solve_batch, pack)
-
-
-def _step_fn_batch(model, p, cfg, carry, pack=None):
-    """Batched control cycle (see `_step_fn`): one `solver.solve_batch` for
-    all B instances, then the elementwise clip and the plant step on (B, ...)."""
-    return _step_fn(model, p, cfg, carry, solver_mod.solve_batch, pack)
-
-
 def _empty_result(x0, steps) -> SimResult:
     """Preallocated outputs on x0's device, x[0] = x0 and u[0] = 0."""
     lead = x0.shape[:-1]
@@ -105,10 +122,10 @@ def _empty_result(x0, steps) -> SimResult:
     return SimResult(xs, x0.new_zeros(lead + (steps + 1, NU)), *scalars)
 
 
-def _advance(model, p, cfg, carry, out: SimResult, start, stop, step_fn=_step_fn, pack=None):
+def _advance(model, p, cfg, carry, out: SimResult, start, stop, pack=None):
     """Control cycles start..stop-1, written into `out`; returns the carry."""
     for t in range(start, stop):
-        carry, (x_next, u0, cost, viol, sdot) = step_fn(model, p, cfg, carry, pack=pack)
+        carry, (x_next, u0, cost, viol, sdot) = _step_fn(model, p, cfg, carry, pack)
         out.xs[..., t + 1, :] = x_next
         out.us[..., t + 1, :] = u0
         out.costs[..., t] = cost
@@ -117,38 +134,210 @@ def _advance(model, p, cfg, carry, out: SimResult, start, stop, step_fn=_step_fn
     return carry
 
 
-def closed_loop(model, p, cfg, x0: torch.Tensor, steps: int) -> SimResult:
-    """Run `steps` control cycles from x0 on x0's device: the presolve, then
-    `steps` × (solve → clip → plant → shift).  The solve's constants are
-    packed once for the run."""
+#: Control cycles per captured CUDA graph of a loop on the card (G).  On an
+#: H100 the rate is the same at G = 10, 25, 50 and 100 within the spread of
+#: its readings, and the capture's time grows with G (0.2 s at 10, 0.9-1.4 s
+#: at 50; PERF.md §6), so G is the smallest measured.
+GRAPH_CYCLES = 10
+#: Graph captures so far, one per program (`_program_key`); a run resets it
+#: to count its own.
+GRAPH_CAPTURES = 0
+#: Solve launches run or recorded while warming up for and capturing graphs.
+#: `ops.ilqr.SOLVE_LAUNCHES` counts the loops' cycles alone: a replay adds the
+#: solve launches its graph holds.
+CAPTURE_LAUNCHES = 0
+#: Programs by `_program_key`, oldest first, at most `_MAX_PROGRAMS`, as the
+#: JAX runner bounds its `_const_jit` cache (an eviction only costs a capture).
+_PROGRAMS: dict = {}
+_MAX_PROGRAMS = 32
+
+
+class _Program:
+    """`cycles` control cycles of one loop over fixed tensors: the carry
+    (x, us_warm, lam_warm, u_prev), read at the start and written back in
+    place at the end (the counterpart of a scan's carry), and the outputs, a
+    `SimResult` of (..., cycles, ·) buffers.  The body runs `_step_fn` in
+    `_advance`'s order, so it gives `_advance`'s bits.  `capture` records
+    the body as one CUDA graph, which `run` then replays; uncaptured, `run`
+    runs the body (the CPU tests hold it to `_advance`).  The program holds its model, OCP
+    parameters and pack (`ops.ilqr.pack`, built once), so the ids in its key
+    stay theirs while it lives."""
+
+    def __init__(self, model, p, cfg, lead: tuple, cycles: int, dtype, device):
+        self.model, self.p, self.cfg, self.cycles = model, p, cfg, cycles
+        self.pack = ilqr.pack(model, p, cfg)
+        new = lambda *shape: torch.zeros(lead + shape, dtype=dtype, device=device)
+        N = cfg.horizon
+        self.carry = (new(NX), new(N, NU), new(N + 1, n_con(model)), new(NU))
+        self.outs = SimResult(new(cycles, NX), new(cycles, NU), new(cycles), new(cycles), new(cycles))
+        self.graph = None
+        self.launches = 0  # solve launches one replay runs
+        # the capture's host seconds: warm-up, recording the body, ending the
+        # capture (instantiating the graph); the bytes its pool reserved
+        self.warmup_s = self.record_s = self.instantiate_s = 0.0
+        self.pool_bytes = 0
+
+    def body(self):
+        carry = self.carry
+        for g in range(self.cycles):
+            carry, (x_next, u0, cost, viol, sdot) = _step_fn(self.model, self.p, self.cfg, carry, self.pack)
+            self.outs.xs[..., g, :] = x_next
+            self.outs.us[..., g, :] = u0
+            self.outs.costs[..., g] = cost
+            self.outs.violations[..., g] = viol
+            self.outs.sdot[..., g] = sdot
+        for dst, src in zip(self.carry, carry):
+            dst.copy_(src)
+
+    def capture(self):
+        """PyTorch's recipe, as `ops.optimize.GraphedValueAndGrad` follows it:
+        one warm-up cycle on a side stream (the kernel library's build and
+        module load, lazy handles; its result is dropped and the carry left
+        as it was), then the body once under `torch.cuda.graph`.  The solves
+        of both count in `CAPTURE_LAUNCHES`, not in `ops.ilqr.SOLVE_LAUNCHES`.
+        A failure raises."""
+        global GRAPH_CAPTURES, CAPTURE_LAUNCHES
+        device = self.carry[0].device
+        before = ilqr.SOLVE_LAUNCHES
+        try:
+            with torch.cuda.device(device):
+                t0 = time.perf_counter()
+                main = torch.cuda.current_stream(device)
+                side = torch.cuda.Stream(device=device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    _step_fn(self.model, self.p, self.cfg, self.carry, self.pack)
+                main.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                t1 = time.perf_counter()
+                with torch.cuda.graph(graph):
+                    t2 = time.perf_counter()
+                    reserved = torch.cuda.memory_reserved(device)
+                    recorded = ilqr.SOLVE_LAUNCHES
+                    self.body()
+                    self.launches = ilqr.SOLVE_LAUNCHES - recorded
+                    t3 = time.perf_counter()
+                self.instantiate_s = time.perf_counter() - t3
+                self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        finally:
+            CAPTURE_LAUNCHES += ilqr.SOLVE_LAUNCHES - before
+            ilqr.SOLVE_LAUNCHES = before
+        self.warmup_s, self.record_s = t1 - t0, t3 - t2
+        self.graph = graph
+        GRAPH_CAPTURES += 1
+
+    def run(self):
+        if self.graph is None:
+            self.body()
+        else:
+            self.graph.replay()
+            ilqr.SOLVE_LAUNCHES += self.launches
+
+
+def _program_key(model, p, cfg, x0, cycles: int) -> tuple:
+    """Everything a program's graph depends on: the model's flags (both
+    `enable_*` and the track's `closed`), the whole frozen `SolverConfig`,
+    the dtype, device and leading shape of the loop's states, the cycle
+    count, and the identity and `_version` of every buffer of the model and
+    of the OCP parameters, so that an in-place edit to any of them captures
+    anew."""
+    buffers = tuple((id(t), t._version) for t in (*model.buffers(), *p.buffers()))
+    return (model.enable_traction_ellipse, model.enable_torque_vectoring, model.track.closed, cfg,
+            x0.dtype, x0.device, tuple(x0.shape[:-1]), cycles, buffers)
+
+
+def _program(model, p, cfg, x0, cycles: int) -> _Program:
+    """The program of `cycles` cycles for loops from states like x0: cached,
+    else built and, on a CUDA device, captured."""
+    key = _program_key(model, p, cfg, x0, cycles)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        prog = _Program(model, p, cfg, tuple(x0.shape[:-1]), cycles, x0.dtype, x0.device)
+        if x0.device.type == "cuda":
+            prog.capture()
+        if len(_PROGRAMS) >= _MAX_PROGRAMS:
+            del _PROGRAMS[next(iter(_PROGRAMS))]
+        _PROGRAMS[key] = prog
+    return prog
+
+
+def _advance_programs(model, p, cfg, carry, out: SimResult, start, stop, cycles: int):
+    """`_advance` by programs of `cycles` cycles (a last run of fewer cycles
+    gets a program of its own length): the carry is copied into a program's
+    carry tensors where the program changes, each run's outputs go into `out`
+    with one copy per field, and the carry comes back as new tensors."""
+    prog = None
+    for t in range(start, stop, cycles):
+        n = min(cycles, stop - t)
+        nxt = _program(model, p, cfg, carry[0], n)
+        if nxt is not prog:
+            for dst, src in zip(nxt.carry, carry):
+                dst.copy_(src)
+            prog = nxt
+        prog.run()
+        out.xs[..., t + 1:t + n + 1, :].copy_(prog.outs.xs)
+        out.us[..., t + 1:t + n + 1, :].copy_(prog.outs.us)
+        out.costs[..., t:t + n].copy_(prog.outs.costs)
+        out.violations[..., t:t + n].copy_(prog.outs.violations)
+        out.sdot[..., t:t + n].copy_(prog.outs.sdot)
+        carry = prog.carry
+    return tuple(c.clone() for c in carry)
+
+
+def _cycles(x0, cfg) -> int:
+    """G of a loop from x0: `GRAPH_CYCLES` for a Gauss-Newton loop on a CUDA
+    device, else 0, the eager loop."""
+    graphed = x0.device.type == "cuda" and cfg.hessian_mode == "gauss_newton"
+    return GRAPH_CYCLES if graphed else 0
+
+
+def _run(model, p, cfg, carry, out: SimResult, start, stop, cycles: int, pack):
+    """Cycles start..stop-1 into `out`, by programs of `cycles` cycles, or
+    eagerly (`_advance`) where `cycles` is 0; returns the carry."""
+    if cycles:
+        return _advance_programs(model, p, cfg, carry, out, start, stop, cycles)
+    return _advance(model, p, cfg, carry, out, start, stop, pack)
+
+
+def _loop(model, p, cfg, x0: torch.Tensor, steps: int, cycles: int) -> SimResult:
+    """`closed_loop` (x0 (NX,)) or `closed_loop_batch` (x0 (B, NX)) by
+    programs of `cycles` cycles, or eagerly where `cycles` is 0: the `cuda`
+    tests and chip_smoke.py hold the graphed loops to the eager loop on the
+    card through it, and the CPU tests run the programs uncaptured."""
     out = _empty_result(x0, steps)
     pk = ilqr.pack(model, p, cfg)
-    _advance(model, p, cfg, _presolve(model, p, cfg, x0, pack=pk), out, 0, steps, _step_fn, pk)
+    _run(model, p, cfg, _presolve(model, p, cfg, x0, pk), out, 0, steps, cycles, pk)
     return out
+
+
+def closed_loop(model, p, cfg, x0: torch.Tensor, steps: int) -> SimResult:
+    """Run `steps` control cycles from x0 on x0's device: the presolve, then
+    `steps` × (solve → clip → plant → shift), on the card as replays of
+    captured graphs of `GRAPH_CYCLES` cycles.  The solve's constants are
+    packed once for the run (once per program on the card)."""
+    return _loop(model, p, cfg, x0, steps, _cycles(x0, cfg))
 
 
 def closed_loop_batch(model, p, cfg, x0_batch: torch.Tensor, steps: int) -> SimResult:
     """A fleet of B independent closed loops (cars, scenarios, parameter
     variations) from x0_batch (B, NX): every control cycle solves all B OCPs
-    with one `solver.solve_batch`.  Outputs carry the instance axis first:
-    xs (B, steps+1, NX), us (B, steps+1, NU), costs/violations/sdot
-    (B, steps).  Instance b follows `closed_loop` from x0_batch[b]."""
-    out = _empty_result(x0_batch, steps)
-    pk = ilqr.pack(model, p, cfg)
-    carry = _presolve_batch(model, p, cfg, x0_batch, pk)
-    _advance(model, p, cfg, carry, out, 0, steps, _step_fn_batch, pk)
-    return out
+    with one `solver.solve_batch`, on the card in graphs as `closed_loop`.
+    Outputs carry the instance axis first: xs (B, steps+1, NX), us (B,
+    steps+1, NU), costs/violations/sdot (B, steps).  Instance b follows
+    `closed_loop` from x0_batch[b]."""
+    return _loop(model, p, cfg, x0_batch, steps, _cycles(x0_batch, cfg))
 
 
 def closed_loop_fleet(model, p, cfg, x0_batch: torch.Tensor, steps: int, mesh) -> SimResult:
     """`closed_loop_batch` with the fleet sharded over `mesh`'s 'dp' ranks
     (`parallel.distributed`): every rank runs the loops of its block of
     x0_batch (B, NX), replicated on every rank, with one solve per control
-    cycle, and one `all_gather` per output field at the end gives every rank
-    the whole fleet, in the layout of `closed_loop_batch`.  The loops are
-    independent, so nothing crosses ranks while they run.  A fleet that the
-    dp axis does not divide is padded by repeating its last initial state,
-    and the padded rows are dropped, as the JAX package does."""
+    cycle (graphed on the card), and one `all_gather` per output field at
+    the end, outside the graphs, gives every rank the whole fleet, in the
+    layout of `closed_loop_batch`.  The loops are independent, so nothing
+    crosses ranks while they run.  A fleet that the dp axis does not divide
+    is padded by repeating its last initial state, and the padded rows are
+    dropped, as the JAX package does."""
     b = x0_batch.shape[0]
     local = closed_loop_batch(model, p, cfg, shard_rows(mesh, x0_batch, pad=True), steps)
     return SimResult(*(gather_rows(mesh, field, b) for field in local))
@@ -181,7 +370,15 @@ def closed_loop_chunked(model, p, cfg, x0: torch.Tensor, steps: int, chunk: int 
     far are saved as npz after every chunk but the last; a run restarted
     with the same arguments resumes at the last complete chunk and gives the
     same trajectory.  A checkpoint written for other steps, chunk, x0 or
-    `_sim_fingerprint` is ignored."""
+    `_sim_fingerprint` is ignored.  On the card each chunk replays graphs of
+    `GRAPH_CYCLES` cycles, which need not divide `chunk`, and a resumed carry
+    is copied into the programs' carry."""
+    return _closed_loop_chunked(model, p, cfg, x0, steps, chunk, checkpoint_path, _cycles(x0, cfg))
+
+
+def _closed_loop_chunked(model, p, cfg, x0, steps, chunk, checkpoint_path, cycles: int) -> SimResult:
+    """`closed_loop_chunked` by programs of `cycles` cycles, or eagerly where
+    `cycles` is 0 (see `_loop`)."""
     out = _empty_result(x0, steps)
     if steps <= 0:
         return out
@@ -198,10 +395,10 @@ def closed_loop_chunked(model, p, cfg, x0: torch.Tensor, steps: int, chunk: int 
                 a[: state[name].shape[0]] = t(name)
     pk = ilqr.pack(model, p, cfg)
     if carry is None:
-        carry = _presolve(model, p, cfg, x0, pack=pk)
+        carry = _presolve(model, p, cfg, x0, pk)
     while done < steps:
         stop = min(done + chunk, steps)
-        carry = _advance(model, p, cfg, carry, out, done, stop, _step_fn, pk)
+        carry = _run(model, p, cfg, carry, out, done, stop, cycles, pk)
         done = stop
         if checkpoint_path is not None and done < steps:
             host = lambda a: a.detach().cpu().numpy()

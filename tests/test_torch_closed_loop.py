@@ -97,6 +97,21 @@ def test_closed_loop_matches_jax_f64(loops):
     np.testing.assert_allclose(got.violations.numpy(), np.asarray(ref.violations), rtol=1e-6, atol=1e-9)
 
 
+def test_closed_loop_programs_match_jax_f64(loops):
+    """The same 10 cycles through the programs of `mpc/runner` (the body a
+    CUDA device captures as graphs, run uncaptured here), 3 cycles each and
+    a tail of 1: JAX's trajectory at the tolerances above, and the eager
+    loop's bits."""
+    ref, got, tm, tp, _ = loops
+    prog = runner._loop(tm, tp, TS.SolverConfig(horizon=10), torch.as_tensor(runner.X0_REFERENCE), STEPS, 3)
+    for name, a, b in zip(runner.SimResult._fields, prog, got):
+        assert torch.equal(a, b), name
+    np.testing.assert_allclose(prog.xs.numpy(), np.asarray(ref.xs), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(prog.us.numpy(), np.asarray(ref.us), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(prog.costs.numpy(), np.asarray(ref.costs), rtol=1e-7)
+    np.testing.assert_allclose(prog.violations.numpy(), np.asarray(ref.violations), rtol=1e-6, atol=1e-9)
+
+
 def test_closed_loop_gates_and_schema(loops):
     """Monotone progress, the applied-state gate of bench.py (< 1e-2), the
     predicted-violation gate (< 0.02), no kernel launch on the CPU, and the
