@@ -1441,6 +1441,7 @@ def phase_graphs(loops, main, steps, batch_steps):
     (`batch_steps`) eager and graphed in turns, and the capture and the rate
     at G = 10, 25, 50 and 100 cycles per graph."""
     from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     for label, (model, p, cfg, x0, graphed), chunk in loops:
@@ -1474,24 +1475,29 @@ def phase_graphs(loops, main, steps, batch_steps):
               + ", ".join(f"{r:.2f}" for r in rates) + f" {unit}")
 
     # G: a capture and then a timed run of the single stream and the fleet
-    # at each G (the G of the timed phases is already captured: its
-    # capture's own numbers are read back)
+    # at each G, the capture's times from its spans (the G of the timed
+    # phases is already captured: no capture, no spans)
     for G in (10, 25, 50, 100):
         row = []
         for start, n in ((x0, steps), (x0b, batch_steps)):
             key = runner._program_key(model, p, cfg, start, min(G, n))
             captures = runner.GRAPH_CAPTURES
             t0 = time.perf_counter()
-            runner._loop(model, p, cfg, start, n, G)
+            with profiling.recording():
+                runner._loop(model, p, cfg, start, n, G)
             torch.cuda.synchronize()
             first = time.perf_counter() - t0
+            host_s = {s["name"]: (s["end_ns"] - s["start_ns"]) / 1e9 for s in profiling.spans()
+                      if s["name"].startswith("runner.capture.")}
             t0 = time.perf_counter()
             runner._loop(model, p, cfg, start, n, G)
             torch.cuda.synchronize()
             rate = start[..., 0].numel() * n / (time.perf_counter() - t0)
             prog = runner._PROGRAMS[key]
-            row.append(f"B={start[..., 0].numel()} {n} cycles: capture (warm-up cycle {prog.warmup_s:.3f} s, record "
-                       f"{prog.record_s:.3f} s, end and instantiate {prog.instantiate_s:.3f} s), pool "
+            capture = (f"capture (warm-up cycle {host_s['runner.capture.warmup']:.3f} s, record "
+                       f"{host_s['runner.capture.record']:.3f} s, end and instantiate "
+                       f"{host_s['runner.capture.instantiate']:.3f} s)" if host_s else "captured before")
+            row.append(f"B={start[..., 0].numel()} {n} cycles: {capture}, pool "
                        f"{prog.pool_bytes / 2**20:.1f} MiB, {runner.GRAPH_CAPTURES - captures} captured in this "
                        f"run, first run {first:.3f} s, then {rate:.2f} solves/s")
         print(f"G={G}: " + "; ".join(row))

@@ -31,12 +31,19 @@ its plain `torch.func` solve is ~11 s of launch-bound eager ops per solve,
 far too many graph nodes).  The presolve (two solves) is eager everywhere.
 Nothing syncs with the host but checkpoints, `applied_violation` and
 `to_sim_results`.
+
+With the span recorder of `utils/profiling` on, a loop records its call
+(`runner.request`), the presolve (`runner.presolve`), each program run
+with its output copies (`runner.replay`) and each capture
+(`runner.capture`, with `.warmup`, `.record` and `.instantiate` inside);
+off, each span site costs one check.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -47,7 +54,7 @@ from lap_time_optimization_tpu_torch.mpc import solver as solver_mod
 from lap_time_optimization_tpu_torch.mpc.solver import n_con
 from lap_time_optimization_tpu_torch.ops import ilqr
 from lap_time_optimization_tpu_torch.parallel.distributed import gather_rows, shard_rows
-from lap_time_optimization_tpu_torch.utils import checkpoint
+from lap_time_optimization_tpu_torch.utils import checkpoint, profiling
 
 #: Reference initial state [s, n, mu, vx, vy, r, steer, throttle]
 #: (src/mpc.py:107-110)
@@ -72,16 +79,18 @@ def _solve(x):
 def _presolve(model, p, cfg, x0, pack=None):
     """Burn in the t=0 warm start (do_mpc's set_initial_guess analogue,
     reference src/mpc.py:118) and return the initial carry.  `pack`: the
-    solve's constants (`ops.ilqr.pack`), built by the calling loop."""
-    lead = x0.shape[:-1]
-    N = cfg.horizon
-    us_warm = x0.new_zeros(lead + (N, NU))
-    lam_warm = x0.new_zeros(lead + (N + 1, n_con(model)))
-    u_prev = x0.new_zeros(lead + (NU,))
-    z0_init = torch.cat([x0, u_prev], dim=-1)
-    for _ in range(2):
-        warm = _solve(x0)(model, p, cfg, z0_init, us_warm, lam_warm, pack)
-        us_warm, lam_warm = warm.us, warm.lam
+    solve's constants (`ops.ilqr.pack`), built by the calling loop.  A
+    device span, `runner.presolve`."""
+    with profiling.span("runner.presolve", device=x0.device):
+        lead = x0.shape[:-1]
+        N = cfg.horizon
+        us_warm = x0.new_zeros(lead + (N, NU))
+        lam_warm = x0.new_zeros(lead + (N + 1, n_con(model)))
+        u_prev = x0.new_zeros(lead + (NU,))
+        z0_init = torch.cat([x0, u_prev], dim=-1)
+        for _ in range(2):
+            warm = _solve(x0)(model, p, cfg, z0_init, us_warm, lam_warm, pack)
+            us_warm, lam_warm = warm.us, warm.lam
     return (x0, us_warm, lam_warm, u_prev)
 
 
@@ -172,10 +181,7 @@ class _Program:
         self.outs = SimResult(new(cycles, NX), new(cycles, NU), new(cycles), new(cycles), new(cycles))
         self.graph = None
         self.launches = 0  # solve launches one replay runs
-        # the capture's host seconds: warm-up, recording the body, ending the
-        # capture (instantiating the graph); the bytes its pool reserved
-        self.warmup_s = self.record_s = self.instantiate_s = 0.0
-        self.pool_bytes = 0
+        self.pool_bytes = 0  # the bytes the capture's pool reserved
 
     def body(self):
         carry = self.carry
@@ -195,34 +201,37 @@ class _Program:
         module load, lazy handles; its result is dropped and the carry left
         as it was), then the body once under `torch.cuda.graph`.  The solves
         of both count in `CAPTURE_LAUNCHES`, not in `ops.ilqr.SOLVE_LAUNCHES`.
-        A failure raises."""
+        A host span, `runner.capture` (attribute `pool_bytes`), with the
+        children `.warmup`, `.record` (the body under capture) and
+        `.instantiate` (ending the capture).  A failure raises."""
         global GRAPH_CAPTURES, CAPTURE_LAUNCHES
         device = self.carry[0].device
         before = ilqr.SOLVE_LAUNCHES
         try:
-            with torch.cuda.device(device):
-                t0 = time.perf_counter()
-                main = torch.cuda.current_stream(device)
-                side = torch.cuda.Stream(device=device)
-                side.wait_stream(main)
-                with torch.cuda.stream(side):
-                    _step_fn(self.model, self.p, self.cfg, self.carry, self.pack)
-                main.wait_stream(side)
+            with profiling.span("runner.capture") as attrs, torch.cuda.device(device):
+                with profiling.span("runner.capture.warmup"):
+                    main = torch.cuda.current_stream(device)
+                    side = torch.cuda.Stream(device=device)
+                    side.wait_stream(main)
+                    with torch.cuda.stream(side):
+                        _step_fn(self.model, self.p, self.cfg, self.carry, self.pack)
+                    main.wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
-                t1 = time.perf_counter()
-                with torch.cuda.graph(graph):
-                    t2 = time.perf_counter()
-                    reserved = torch.cuda.memory_reserved(device)
-                    recorded = ilqr.SOLVE_LAUNCHES
-                    self.body()
-                    self.launches = ilqr.SOLVE_LAUNCHES - recorded
-                    t3 = time.perf_counter()
-                self.instantiate_s = time.perf_counter() - t3
+                with contextlib.ExitStack() as ending:
+                    with torch.cuda.graph(graph):
+                        with profiling.span("runner.capture.record"):
+                            reserved = torch.cuda.memory_reserved(device)
+                            recorded = ilqr.SOLVE_LAUNCHES
+                            self.body()
+                            self.launches = ilqr.SOLVE_LAUNCHES - recorded
+                        # closed by `ending` once the graph's context has ended the capture
+                        ending.enter_context(profiling.span("runner.capture.instantiate"))
                 self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+                if attrs is not None:
+                    attrs["pool_bytes"] = self.pool_bytes
         finally:
             CAPTURE_LAUNCHES += ilqr.SOLVE_LAUNCHES - before
             ilqr.SOLVE_LAUNCHES = before
-        self.warmup_s, self.record_s = t1 - t0, t3 - t2
         self.graph = graph
         GRAPH_CAPTURES += 1
 
@@ -265,7 +274,9 @@ def _advance_programs(model, p, cfg, carry, out: SimResult, start, stop, cycles:
     """`_advance` by programs of `cycles` cycles (a last run of fewer cycles
     gets a program of its own length): the carry is copied into a program's
     carry tensors where the program changes, each run's outputs go into `out`
-    with one copy per field, and the carry comes back as new tensors."""
+    with one copy per field, and the carry comes back as new tensors.  Each
+    run and its copies are a device span, `runner.replay` (attribute
+    `cycles`)."""
     prog = None
     for t in range(start, stop, cycles):
         n = min(cycles, stop - t)
@@ -274,12 +285,13 @@ def _advance_programs(model, p, cfg, carry, out: SimResult, start, stop, cycles:
             for dst, src in zip(nxt.carry, carry):
                 dst.copy_(src)
             prog = nxt
-        prog.run()
-        out.xs[..., t + 1:t + n + 1, :].copy_(prog.outs.xs)
-        out.us[..., t + 1:t + n + 1, :].copy_(prog.outs.us)
-        out.costs[..., t:t + n].copy_(prog.outs.costs)
-        out.violations[..., t:t + n].copy_(prog.outs.violations)
-        out.sdot[..., t:t + n].copy_(prog.outs.sdot)
+        with profiling.span("runner.replay", device=out.xs.device, cycles=n):
+            prog.run()
+            out.xs[..., t + 1:t + n + 1, :].copy_(prog.outs.xs)
+            out.us[..., t + 1:t + n + 1, :].copy_(prog.outs.us)
+            out.costs[..., t:t + n].copy_(prog.outs.costs)
+            out.violations[..., t:t + n].copy_(prog.outs.violations)
+            out.sdot[..., t:t + n].copy_(prog.outs.sdot)
         carry = prog.carry
     return tuple(c.clone() for c in carry)
 
@@ -299,6 +311,20 @@ def _run(model, p, cfg, carry, out: SimResult, start, stop, cycles: int, pack):
     return _advance(model, p, cfg, carry, out, start, stop, pack)
 
 
+def _request(loop):
+    """`loop(model, p, cfg, x0, steps, ...)` inside the span of its whole
+    call, `runner.request`: a device span that the loop's other spans name
+    as their request (attributes `batch` and `cycles`)."""
+
+    @functools.wraps(loop)
+    def spanned(model, p, cfg, x0, steps, *args, **kwargs):
+        batch = x0.shape[0] if x0.dim() > 1 else 1
+        with profiling.span("runner.request", device=x0.device, request=True, batch=batch, cycles=steps):
+            return loop(model, p, cfg, x0, steps, *args, **kwargs)
+    return spanned
+
+
+@_request
 def _loop(model, p, cfg, x0: torch.Tensor, steps: int, cycles: int) -> SimResult:
     """`closed_loop` (x0 (NX,)) or `closed_loop_batch` (x0 (B, NX)) by
     programs of `cycles` cycles, or eagerly where `cycles` is 0: the `cuda`
@@ -376,6 +402,7 @@ def closed_loop_chunked(model, p, cfg, x0: torch.Tensor, steps: int, chunk: int 
     return _closed_loop_chunked(model, p, cfg, x0, steps, chunk, checkpoint_path, _cycles(x0, cfg))
 
 
+@_request
 def _closed_loop_chunked(model, p, cfg, x0, steps, chunk, checkpoint_path, cycles: int) -> SimResult:
     """`closed_loop_chunked` by programs of `cycles` cycles, or eagerly where
     `cycles` is 0 (see `_loop`)."""

@@ -1,13 +1,23 @@
 """Timing and observability — port of `lap_time_optimization_tpu/utils/profiling.py`.
 
-* `Timer` — named wall-time spans; the first span of a name is kept apart
-  (in the JAX package it holds the compile; here the first call's kernel
-  build and allocator warm-up);
-* `solve_rate` — solves per second;
+* `Timer` — named spans: the wall time of each span under its name (the
+  first span of a name kept apart: here the first call's kernel build and
+  allocator warm-up), and each span as a record (its id, parent, request,
+  start and end on `time.time_ns()`, attributes, and on a CUDA device the
+  device time between two CUDA events);
+* `record` / `recording`, `span`, `spans`, `write_spans` — the program's
+  span recorder: one `Timer`, off by default;
 * `trace` — an optional `torch.profiler` session that writes a Chrome trace
   into a directory;
 * `log_metrics` — one-line structured (JSON) metric records on stdout;
 * `Heartbeat` — a one-line JSON heartbeat file for long searches.
+
+The recorder's clock, `time.time_ns()`, is the one torch.profiler stamps
+its events with (nanoseconds since the Unix epoch), so a span and the
+profiler's events of the same run line up without conversion.  Recording
+never syncs with the device: `spans()` synchronises once, when the
+records are read.  Spans nest by the order they open in, so spans are
+recorded from one thread.
 """
 
 from __future__ import annotations
@@ -18,28 +28,75 @@ import os
 import sys
 import time
 
+import torch
+
 
 class Timer:
-    """Accumulates named wall-time spans; the first span per name is the
-    warm-up."""
+    """Named spans.  `spans` holds each name's wall seconds (`report()`:
+    the first apart from the steady mean); `records` holds every span:
+    `name`, `id`, `parent` (the innermost span open at its start),
+    `request` (the id of the innermost enclosing span opened with
+    `request=True`, which is its own), `start_ns` and `end_ns` on
+    `time.time_ns()`, and `attrs`."""
 
     def __init__(self):
         self.spans: dict[str, list[float]] = {}
+        self.records: list[dict] = []
+        self._open: list[dict] = []
+        self._events: dict[int, tuple] = {}  # record id -> (start, end) CUDA events
 
     @contextlib.contextmanager
-    def span(self, name: str):
-        t0 = time.perf_counter()
+    def span(self, name: str, device=None, request: bool = False, **attrs):
+        """A span over the block; yields its `attrs`, which the block may
+        add to.  With `device` a CUDA device, two `torch.cuda.Event`s on its
+        current stream also time the block's device work (`device_ms` in
+        `resolve`)."""
+        parent = self._open[-1] if self._open else None
+        rec = {"name": name, "id": len(self.records), "parent": None if parent is None else parent["id"],
+               "request": None if parent is None else parent["request"], "start_ns": 0, "end_ns": None,
+               "attrs": attrs}
+        if request:
+            rec["request"] = rec["id"]
+        self.records.append(rec)
+        self._open.append(rec)
+        stream = None
+        if device is not None and torch.device(device).type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        rec["start_ns"] = time.time_ns()
         try:
-            yield
+            yield attrs
         finally:
-            self.spans.setdefault(name, []).append(time.perf_counter() - t0)
+            if stream is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                self._events[rec["id"]] = (start, end)
+            rec["end_ns"] = time.time_ns()
+            self._open.pop()
+            self.spans.setdefault(name, []).append((rec["end_ns"] - rec["start_ns"]) / 1e9)
 
-    def compile_time(self, name: str) -> float:
-        return self.spans[name][0]
-
-    def steady_time(self, name: str) -> float:
-        xs = self.spans[name][1:] or self.spans[name]
-        return sum(xs) / len(xs)
+    def resolve(self) -> list[dict]:
+        """The closed spans as plain dicts, in the order they opened, each
+        with `device_ms` (its CUDA events' elapsed time, else None) and
+        `device_at_ms` (its start event's time after the first device
+        span's start event, on the device's clock, else None).  Syncs the
+        device once where any span holds CUDA events."""
+        if self._events:
+            torch.cuda.synchronize()
+        first = None
+        out = []
+        for rec in self.records:
+            if rec["end_ns"] is None:
+                continue
+            item = {**rec, "attrs": dict(rec["attrs"]), "device_ms": None, "device_at_ms": None}
+            events = self._events.get(rec["id"])
+            if events is not None:
+                first = events[0] if first is None else first
+                item["device_ms"] = events[0].elapsed_time(events[1])
+                item["device_at_ms"] = first.elapsed_time(events[0])
+            out.append(item)
+        return out
 
     def report(self) -> dict:
         return {
@@ -49,8 +106,51 @@ class Timer:
         }
 
 
-def solve_rate(n_solves: int, seconds: float) -> float:
-    return n_solves / max(seconds, 1e-12)
+#: The program's span recorder and its switch (`record`).
+RECORDER = Timer()
+_RECORDING = False
+_OFF = contextlib.nullcontext()
+
+
+def record(on: bool) -> None:
+    """Switch the program's span recorder on (a new, empty recording) or
+    off (the recording stays readable by `spans()`)."""
+    global RECORDER, _RECORDING
+    if on:
+        RECORDER = Timer()
+    _RECORDING = bool(on)
+
+
+@contextlib.contextmanager
+def recording():
+    """The recorder on over the block (a new recording), off after it."""
+    record(True)
+    try:
+        yield RECORDER
+    finally:
+        record(False)
+
+
+def span(name: str, device=None, request: bool = False, **attrs):
+    """`RECORDER.span(...)` while recording; otherwise one shared no-op
+    context (it yields None), so a span site costs one check."""
+    if not _RECORDING:
+        return _OFF
+    return RECORDER.span(name, device, request, **attrs)
+
+
+def spans() -> list[dict]:
+    """The current (or last) recording's closed spans (`Timer.resolve`)."""
+    return RECORDER.resolve()
+
+
+def write_spans(path: str) -> int:
+    """Write `spans()` to `path` as JSON lines; returns how many."""
+    items = spans()
+    with open(path, "w") as fh:
+        for item in items:
+            fh.write(json.dumps(item) + "\n")
+    return len(items)
 
 
 @contextlib.contextmanager
@@ -61,7 +161,6 @@ def trace(logdir: str | None):
     if logdir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -42,6 +42,10 @@ REPLACED = {
     "mpc/solver.py:required_batch_window": None,
     # JAX's --platform/--x64 flags become --device/--dtype.
     "cli/race.py:apply_backend_flags": None,
+    # Read by nothing; `Timer.report()` gives the first and steady times.
+    "utils/profiling.py:solve_rate": None,
+    "utils/profiling.py:Timer.compile_time": None,
+    "utils/profiling.py:Timer.steady_time": None,
 }
 
 # Parameters of a JAX function that the port's counterpart does not take.
