@@ -30,7 +30,7 @@ horizon-20 class (`SolverConfig.for_horizon(20)`) through a whole lap of
 Phases:
 
 1. versions, the card's name and power limit, TF32 off;
-2. build `csrc/ilqr.cu` and `csrc/velocity.cu` (two kernels), one nvcc
+2. build `csrc/ilqr.cu`, `csrc/velocity.cu` and `csrc/cycle_tail.cu`, one nvcc
    process per source started together, and print ptxas' registers and
    spills;
 3. the solve kernel (the whole AL-iLQR solve, kernels 1-2 of the JAX
@@ -46,13 +46,13 @@ Phases:
    against the same loop on the CPU (plain solve), then a warm-up of G
    cycles (which captures the CUDA graph of G = `runner.GRAPH_CYCLES`
    cycles) and the timed closed loop, its graphs replayed, whose solve
-   launches are counted (one per cycle); the
+   and tail launches are counted (one each per cycle); the
    applied violation read with both pairings (`runner.applied_violation`),
    gated on the JAX package's;
 5. fleet: a 3-cycle float64 batched loop (4 instances) on the card against
    the CPU, then a warm-up of G cycles and the timed 32-instance loop
-   (graphed), with its launches counted
-   (one per cycle) and both readings of the applied violation;
+   (graphed), with its solve and tail launches counted
+   (one each per cycle) and both readings of the applied violation;
 6. nonlinear search: the 1024-candidate selection timed alone, then the
    whole search, its lap by the scan oracle gated below the published
    36.178 s × 1.01 and its kernel launches counted (1);
@@ -118,7 +118,10 @@ Phases:
 12. kernel 3 timed at B = 128, 256 and 1024 (the Bayesian init, a
    Bayesian round, the nonlinear selection) for 1, 4 and 16 segments,
    float32 and float64, by its device time in torch.profiler, and the
-   wrapper and the twin per call, and at phase 10's long selections; then,
+   wrapper and the twin per call, and at phase 10's long selections; the
+   tail kernel by its device time at phase 16's timed shapes (h10 f32 and
+   h20 f64, the single stream's shape and B = 4096), beside the plain
+   tail's device time and kernels per call; then,
    with --profile, the profiles of both NMPC loops, graphed (G cycles) and
    eager (3 cycles), and of one graphed chunk of the h20 lap (f64 and f32),
    each with the device's busy share of its unprofiled wall time.  Phases 11-12 come
@@ -154,13 +157,25 @@ Phases:
    `runner._closed_loop_chunked` with 0 cycles per graph) and held to it
    bit for bit; the single stream and the fleet eager and graphed in turns;
    the capture (warm-up, recording, instantiation, pool bytes) and the rate
-   at G = 10, 25, 50 and 100 cycles per graph; the captures so far.
+   at G = 10, 25, 50 and 100 cycles per graph; the captures so far;
+16. the tail kernel (run after phase 3, before phase 4: every NMPC loop
+   runs it) against the plain tail on the card (`ops.cycle_tail.tail` vs
+   `tail_reference`), from the solve kernel's outputs and the carry at the
+   main paths' shapes: h10 f32 unbatched (the single stream), B=32 and
+   B=4096, with torque vectoring and the traction ellipse's 16 rows at
+   the first two, and the h20 class in f64 (unbatched, B=32, B=4096),
+   each without and with output rows: the shifts and the outputs' copies
+   bit for bit, x_next, u0 and sdot at the `cuda` tests' tolerances, its
+   launches counted; the plain tail's time per call (CUDA events) at the
+   shapes phase 12 times.
 
 The NMPC loops on the card replay CUDA graphs of G control cycles
 (`mpc/runner`); each phase's warm-up call captures the graphs its timed
 call replays, and the solve-kernel launches they count are the cycles'
 (`ops.ilqr.SOLVE_LAUNCHES`; the solves of warm-ups and captures count in
-`runner.CAPTURE_LAUNCHES`).
+`runner.CAPTURE_LAUNCHES`), and so do their tail-kernel launches
+(`ops.cycle_tail.TAIL_LAUNCHES`, one per cycle; a capture's are not
+counted).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -253,6 +268,24 @@ F32_FLOP_PER_S = 67e12
 # Its float64 rate outside the tensor cores (the same data sheet), for the
 # float64 solves that phase 13 times.
 F64_FLOP_PER_S = 34e12
+# Phase 16, the tail kernel against the plain tail: the main paths' shapes
+# (the single stream, unbatched; bench.py's fleet; the benchmark's fleet of
+# 4096) in float32 at horizon 10, with torque vectoring and the traction
+# ellipse's 16 rows too, and the h20 class in float64: (dtype, horizon, both
+# flags on, batches).  u0 and sdot are held as the cuda tests hold them
+# (tests/test_torch_cycle_tail.py): relative, sdot to (|s| + |s_next|) / dt;
+# the shifts are copies, bit for bit.  x_next is held to |x| + |x_next| of
+# its component's largest instance, not of its own: these loops start on
+# the line with no heading error (`fleet_states`), and after one step an
+# instance's offset or heading error can be a near-cancelled difference of
+# the RHS's terms, 1e-6 of its size; there the plain float32 tail itself
+# lies up to 6.5e-3 of |x| + |x_next| from the float64 one (B=4096, h10,
+# on the CPU), and the kernel 1.2e-4 from the plain float32 tail (on an
+# H100).  Both per-instance readings are printed.
+TAIL_CASES = ((torch.float32, 10, False, (1, BATCH, 4096)), (torch.float32, 10, True, (1, BATCH)),
+              (torch.float64, 20, False, (1, BATCH, 4096)))
+TAIL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+TIMED_TAILS = ("h10 float32 B=1", "h10 float32 B=4096", "h20 float64 B=1", "h20 float64 B=4096")
 # Phase 9: the closed loop at `accurate()` (the window tests/test_mpc.py runs
 # the JAX package's at), the fleet's cycles on the mesh, the evolutionary
 # search's budget, and the tolerances of the exact solve (card vs CPU, f64)
@@ -325,16 +358,16 @@ def nvidia_smi() -> str:
 
 
 def reset_counts():
-    from lap_time_optimization_tpu_torch.ops import ilqr, velocity_batch
+    from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr, velocity_batch
 
-    ilqr.SOLVE_LAUNCHES = velocity_batch.LAUNCHES = 0
+    ilqr.SOLVE_LAUNCHES = velocity_batch.LAUNCHES = cycle_tail.TAIL_LAUNCHES = 0
 
 
 def read_counts():
-    """(solve kernel, kernel 3) launches since the last reset."""
-    from lap_time_optimization_tpu_torch.ops import ilqr, velocity_batch
+    """(solve kernel, kernel 3, tail kernel) launches since the last reset."""
+    from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr, velocity_batch
 
-    return ilqr.SOLVE_LAUNCHES, velocity_batch.LAUNCHES
+    return ilqr.SOLVE_LAUNCHES, velocity_batch.LAUNCHES, cycle_tail.TAIL_LAUNCHES
 
 
 def nbytes(*tensors) -> int:
@@ -381,6 +414,15 @@ def velocity_flops(B: int, N: int, pacejka: bool) -> int:
     traction, 35 for the 7-knot clamp-sum engine (3 for Pacejka's), 7 for
     each reach, 5 for each select and ds, and the final min."""
     return B * N * (53 if pacejka else 85)
+
+
+def tail_flops(cfg) -> int:
+    """Operations of one loop's cycle tail, counted from csrc/cycle_tail.cu
+    as `solve_flops` counts: the clip 10 per input (the negated rate, the
+    two box differences and their divisions by dt, the max and the min of
+    the bounds and of the clamp), the plant step's RK4 substeps (4 RHS
+    evaluations of 85 and the 8-vector updates, 104, each) and sdot 2."""
+    return 2 * 10 + cfg.substeps * (4 * 85 + 104) + 2
 
 
 def search_setup(device, dtype):
@@ -733,6 +775,102 @@ def rel_err(got, ref) -> float:
     return float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
 
 
+def device_busy_ms(fn, n):
+    """(device time per call of every kernel fn launches, kernels per call),
+    from torch.profiler over n calls of fn after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    return sum(a.self_device_time_total for a in device) / 1e3 / n, sum(a.count for a in device) / n
+
+
+def phase_tail(device):
+    """Phase 16: the tail kernel against the plain tail on the card (see the
+    module docstring).  Returns the largest float32 |d| of x_next, u0 and
+    sdot, the kernel's launches, and by label the timed shapes' inputs
+    (model, p, cfg, x, res, pk, rows, bound) with the plain tail's time per
+    call (CUDA events) beside them; phase 12 times the kernel on them."""
+    from lap_time_optimization_tpu_torch.mpc import runner
+    from lap_time_optimization_tpu_torch.mpc.solver import SolveResult, SolverConfig
+    from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr
+
+    t_phase = time.perf_counter()
+    worst_abs, timed, n_solves, n_tails = 0.0, {}, 0, 0
+    reset_counts()
+    for dtype, horizon, on, batches in TAIL_CASES:
+        model, p = load_main_path(device, dtype, on, on)
+        m64, p64 = load_main_path(device, torch.float64, on, on)
+        cfg = SolverConfig(horizon=horizon) if horizon == 10 else SolverConfig.for_horizon(horizon)
+        pk = ilqr.pack(model, p, cfg)
+        rtol, tiny = TAIL_RTOL[dtype], torch.finfo(dtype).tiny
+        for B in batches:
+            label = f"h{horizon} {str(dtype)[6:]} B={B}" + (" tv ellipse" if on else "")
+            x0 = runner.X0_REFERENCE if B == 1 else fleet_states(model.track, B)
+            z0, us_init, lam_init = solve_inputs(model, cfg, x0, 0.0 if B == 1 else 2.0, 5)
+            res = SolveResult(*ilqr.solve(model, p, cfg, z0, us_init, lam_init, pk))
+            n_solves += 1
+            x = z0[..., :ilqr.NX].contiguous()
+            ref = cycle_tail.tail_reference(model, p, cfg, x, res.us, res.lam)
+            dest = runner._empty_result(x, 3)
+            rows = (dest.xs[..., 2, :], dest.us[..., 2, :], dest.costs[..., 1], dest.violations[..., 1],
+                    dest.sdot[..., 1])
+            # x_next against each component's magnitude over the batch (see TAIL_RTOL)
+            x_scale = (x.abs() + ref[0].abs()).reshape(-1, ilqr.NX).amax(0)
+            per_instance = lambda got, r: float(((got.double() - r.double()).abs()
+                                                 / (x.abs() + r.abs()).double().clamp(min=tiny)).max())
+            errs, copies = {}, True
+            for with_rows in (False, True):
+                carry, out = cycle_tail.tail(model, p, cfg, x, res, pk, rows if with_rows else None)
+                n_tails += 1
+                x_next, us_next, lam_next, u0 = carry
+                # the shifts are copies; the outputs are the carry's values (in the rows
+                # when given) and the solve's own; sdot the division of the kernel's x_next
+                copies = (copies and torch.equal(us_next, ref[2]) and torch.equal(lam_next, ref[3])
+                          and torch.equal(out[0], x_next) and torch.equal(out[1], u0)
+                          and torch.equal(out[2], res.cost) and torch.equal(out[3], res.max_violation)
+                          and torch.equal(out[4].cpu(), (x_next[..., 0] - x[..., 0]).cpu() / cfg.dt)
+                          and (not with_rows or out is rows))
+                s_scale = (x[..., 0].abs() + ref[0][..., 0].abs()) / cfg.dt
+                for name, got, r, scale in (("x_next", x_next, ref[0], x_scale),
+                                            ("u0", u0, ref[1], ref[1].abs() + tiny),
+                                            ("sdot", out[4], ref[4], s_scale)):
+                    d = (got.double() - r.double()).abs()
+                    errs[name] = max(errs.get(name, 0.0), float((d / scale.double()).max()))
+                    if dtype == torch.float32:
+                        worst_abs = max(worst_abs, float(d.max()))
+            # per instance, as the cuda tests hold x_next (printed): beside float32's own
+            # distance from float64 on the same inputs, the plain tail's and the kernel's
+            context = f"x_next per instance {per_instance(x_next, ref[0]):.3g}"
+            if dtype == torch.float32:
+                ref64 = cycle_tail.tail_reference(m64, p64, cfg, x.double(), res.us.double(), res.lam.double())
+                context += (f"; against the plain tail in float64 per instance: the plain float32 tail "
+                            f"{per_instance(ref[0], ref64[0]):.3g}, the kernel {per_instance(x_next, ref64[0]):.3g}")
+            print(f"tail kernel vs plain tail {label} n_con={res.lam.shape[-1]} substeps={cfg.substeps}, "
+                  f"without and with rows: shifts and outputs bit-equal {copies}; "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {rtol:g}); {context}")
+            if not copies or not all(v <= rtol for v in errs.values()):
+                raise AssertionError(f"{label}: the tail kernel disagrees with the plain tail")
+            if label in TIMED_TAILS:
+                outs = (x_next, u0, us_next, lam_next, *rows)
+                n_bytes = nbytes(x, res.us, res.lam, res.cost, res.max_violation, pk.tables, pk.scal_tail, *outs)
+                rate = F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S
+                bound = bound_ms(n_bytes, B * tail_flops(cfg), rate)
+                plain = cuda_ms(lambda: cycle_tail.tail_reference(model, p, cfg, x, res.us, res.lam), 20)
+                timed[label] = ((model, p, cfg, x, res, pk, rows, bound), plain)
+    counts = read_counts()
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    if counts != (n_solves, 0, n_tails):
+        raise AssertionError(f"phase 16 launches {counts}, expected ({n_solves}, 0, {n_tails})")
+    return worst_abs, n_tails, timed
+
+
 def phase_parallel(device, x0b_np, nl, best_x, best_f):
     """Phase 9: `accurate()` on the solve kernel, exact Hessians on the card,
     and `parallel/` on a 1×1 NCCL mesh (see the module docstring).  Returns
@@ -808,12 +946,14 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     applied = runner.applied_violation(model, p, sim)
     print(f"closed loop at accurate(): {ACCURATE_STEPS} steps f32 in {wall:.3f} s = {ACCURATE_STEPS / wall:.2f} Hz; "
           f"progress {xs[-1, 0]:.2f} m; applied violation {applied:.3e} (JAX pairing, gated < 1e-2), "
-          f"predicted {predicted:.3e} (gated < 0.02); launches (solve kernel, kernel 3) {counts}")
-    if counts != (ACCURATE_STEPS + 2, 0):
-        raise AssertionError(f"accurate() loop launches {counts}, expected ({ACCURATE_STEPS + 2}, 0)")
+          f"predicted {predicted:.3e} (gated < 0.02); launches (solve kernel, kernel 3, tail kernel) {counts}")
+    if counts != (ACCURATE_STEPS + 2, 0, ACCURATE_STEPS):
+        raise AssertionError(f"accurate() loop launches {counts}, expected "
+                             f"({ACCURATE_STEPS + 2}, 0, {ACCURATE_STEPS})")
     if not (np.all(np.isfinite(xs)) and np.all(np.diff(xs[:, 0]) > 0) and applied < 1e-2 and predicted < 0.02):
         raise AssertionError("the closed loop at accurate() fails its gates")
     launches += counts[0]
+    out["tail_launches"] = out.get("tail_launches", 0) + counts[2]
     out["accurate_hz"] = ACCURATE_STEPS / wall
     out["accurate_loop"] = (model, p, acc, x0, sim)
 
@@ -834,7 +974,7 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     print(f"exact-Hessian solve h10 f64 (2x5 iterations): card {out['exact_s']:.2f} s, CPU {cpu_s:.2f} s; "
           f"card vs CPU max |d|/max(1,|ref|) {err:.3e} (tol {EXACT_TOL:g}); cost {float(ref.cost):.4f}; "
           f"launches {counts} (none: the kernel is Gauss-Newton only)")
-    if counts != (0, 0) or not err <= EXACT_TOL:
+    if counts != (0, 0, 0) or not err <= EXACT_TOL:
         raise AssertionError("the exact-Hessian solve on the card disagrees with the CPU or launched a kernel")
 
     # the fleet on the 1x1 NCCL mesh, bit-equal to closed_loop_batch
@@ -858,12 +998,13 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     print(f"closed_loop_fleet on the 1x1 mesh: {BATCH} loops x {MESH_FLEET_STEPS} steps f32 in {wall:.3f} s = "
           f"{out['fleet_solves_per_s']:.1f} solves/s; bit-equal to closed_loop_batch: {same}; applied "
           f"violation, worst of instances 0-{FLEET_IN_BAND - 1} {max(per[:FLEET_IN_BAND]):.3e}; launches {counts}")
-    if counts != (MESH_FLEET_STEPS + 2, 0) or not same:
+    if counts != (MESH_FLEET_STEPS + 2, 0, MESH_FLEET_STEPS) or not same:
         raise AssertionError(f"fleet on the mesh: launches {counts}, bit-equal {same}")
     if not (np.all(np.isfinite(bxs)) and np.all(np.diff(bxs[:, :, 0], axis=1) > 0)
             and max(per[:FLEET_IN_BAND]) < 1e-2):
         raise AssertionError("the fleet on the mesh fails its gates")
     launches += counts[0]
+    out["tail_launches"] = out.get("tail_launches", 0) + counts[2]
 
     # the sequence-parallel profile on a 1-rank sp axis, float64
     track64, tbr64, mx64 = search_setup(device, torch.float64)
@@ -907,7 +1048,7 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     counts = read_counts()
     print(f"evolutionary_search (tbr18, buckmore {WIDTH}, f32, batch {EVO_BATCH}, {EVO_ROUNDS} rounds, fused, 1x1): "
           f"{out['evo_s']:.2f} s; best lap {hist[0]:.4f} -> {hist[-1]:.4f} s; launches {counts}")
-    if counts != (0, EVO_ROUNDS) or not (np.all(np.diff(hist) <= 0) and hist[-1] < hist[0]):
+    if counts != (0, EVO_ROUNDS, 0) or not (np.all(np.diff(hist) <= 0) and hist[-1] < hist[0]):
         raise AssertionError("the evolutionary search fails its gates")
     k3_launches += counts[1]
 
@@ -917,7 +1058,7 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     counts = read_counts()
     print(f"scaling.measure on the 1-rank world (fused, {EVO_BATCH} per rank; launches {counts}):")
     print(scaling.report(scale))
-    if set(scale) != {1} or counts != (0, 4):
+    if set(scale) != {1} or counts != (0, 4, 0):
         raise AssertionError(f"scaling.measure: entries {sorted(scale)}, launches {counts}")
     k3_launches += counts[1]
 
@@ -931,7 +1072,7 @@ def phase_parallel(device, x0b_np, nl, best_x, best_f):
     same = bool(torch.equal(mx, best_x)) and mf == best_f
     print(f"nonlinear on the 1x1 mesh: {wall:.2f} s, search lap {mf:.4f} s, bit-equal to phase 6: {same}; "
           f"launches {counts}")
-    if not same or counts != (0, 1):
+    if not same or counts != (0, 1, 0):
         raise AssertionError("nonlinear on the mesh differs from phase 6")
     k3_launches += counts[1]
     dist.destroy_process_group()
@@ -1039,11 +1180,13 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
           f"gated < 1e-2; with the state each input was applied from "
           f"{runner.applied_violation(lmodel, lp, sim, pairing='applied'):.3e}); predicted violation over the first "
           f"{PREDICTED_WINDOW} cycles {float(sim.violations[:PREDICTED_WINDOW].max()):.3e}; launches {counts}")
-    if counts != (LONG_STEPS + 2, 0):
-        raise AssertionError(f"long-table closed loop launches {counts}, expected ({LONG_STEPS + 2}, 0)")
+    if counts != (LONG_STEPS + 2, 0, LONG_STEPS):
+        raise AssertionError(f"long-table closed loop launches {counts}, expected "
+                             f"({LONG_STEPS + 2}, 0, {LONG_STEPS})")
     if not (np.all(np.isfinite(xs)) and np.all(np.diff(xs[:, 0]) > 0) and applied < 1e-2):
         raise AssertionError("the closed loop on the long table fails its gates")
     solve_n += counts[0]
+    out["tail_launches"] = out.get("tail_launches", 0) + counts[2]
     out["long_hz"] = LONG_STEPS / wall
     out["long_loop"] = (lmodel, lp, cfg, x0, sim)
 
@@ -1066,12 +1209,14 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
           f"0-{LONG_FLEET_IN_BAND - 1} {max(per[:LONG_FLEET_IN_BAND]):.3e} (gated), instances "
           f"{LONG_FLEET_IN_BAND}-{BATCH - 1} {[round(v, 4) for v in per[LONG_FLEET_IN_BAND:]]}; progress not "
           f"monotone on instances {np.flatnonzero(~monotone).tolist()}; launches {counts}")
-    if counts != (LONG_FLEET_STEPS + 2, 0):
-        raise AssertionError(f"long-table fleet launches {counts}, expected ({LONG_FLEET_STEPS + 2}, 0)")
+    if counts != (LONG_FLEET_STEPS + 2, 0, LONG_FLEET_STEPS):
+        raise AssertionError(f"long-table fleet launches {counts}, expected "
+                             f"({LONG_FLEET_STEPS + 2}, 0, {LONG_FLEET_STEPS})")
     if not (np.all(np.isfinite(bxs)) and np.all(monotone[:LONG_FLEET_IN_BAND])
             and max(per[:LONG_FLEET_IN_BAND]) < 1e-2):
         raise AssertionError("the fleet on the long table fails its gates")
     solve_n += counts[0]
+    out["tail_launches"] = out.get("tail_launches", 0) + counts[2]
 
     # the solve kernel's time on the long table (global placement) beside
     # the shared placement's at buckmore's size, CUDA events
@@ -1161,8 +1306,8 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
                   f"{LONG_ROWS} rows ({twin_s:.1f} s): max |d|/max(1,|ref|) {rel:.3e} (tol {K3_TOL[dtype]:g}), "
                   f"bit-equal {torch.equal(got, ref)}, NaN positions equal {nan_same}; its laps vs the selection's "
                   f"max |d| {lap_d:.3e} s")
-            if counts != (0, 1):
-                raise AssertionError(f"long selection launches {counts}, expected (0, 1)")
+            if counts != (0, 1, 0):
+                raise AssertionError(f"long selection launches {counts}, expected (0, 1, 0)")
             if not (rel <= K3_TOL[dtype] and nan_same and got.shape == ref.shape):
                 raise AssertionError(f"kernel 3 disagrees with its twin on the {ns - 1} m circuit")
             if dtype == torch.float32:
@@ -1185,8 +1330,8 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
               f"{wall:.2f} s; L-BFGS iterations {iters}; graph captures {captures}; CLI lap {res['lap_time']:.4f} s "
               f"(kernel 3), scan-oracle lap of the same line {scan:.4f} s ({scan_s:.1f} s): |d|/scan {rel:.3e} "
               f"(tol {LONG_LAP_RTOL:g}); launches {counts}")
-        if counts != (0, 1):
-            raise AssertionError(f"long --curvature launches {counts}, expected (0, 1)")
+        if counts != (0, 1, 0):
+            raise AssertionError(f"long --curvature launches {counts}, expected (0, 1, 0)")
         if not (np.isfinite(scan) and rel <= LONG_LAP_RTOL):
             raise AssertionError("the long --curvature lap disagrees with the scan oracle")
         k3_n += counts[1]
@@ -1390,11 +1535,12 @@ def phase_long_horizons(device):
               f"(< 1e-2), over the lap {runner.applied_violation(model, p, sim):.3e}; progress monotone {monotone}; "
               f"lap completed {lapped}; max |mu| {mu:.4f} (< {LAP_MU}); finite {finite}; JAX's gates met {meets}; "
               f"launches {counts}")
-        if counts != (LAP_CYCLES + 2, 0):
-            raise AssertionError(f"h20 lap launches {counts}, expected ({LAP_CYCLES + 2}, 0)")
+        if counts != (LAP_CYCLES + 2, 0, LAP_CYCLES):
+            raise AssertionError(f"h20 lap launches {counts}, expected ({LAP_CYCLES + 2}, 0, {LAP_CYCLES})")
         if not meets:
             raise AssertionError(f"the {dt(dtype)} h20 lap fails its gates")
         launches += counts[0]
+        out["tail_launches"] = out.get("tail_launches", 0) + counts[2]
 
     # times, after every gate: CUDA events per call, with the bound
     timed = []
@@ -1620,7 +1766,7 @@ def main(argv=None) -> int:
     from lap_time_optimization_tpu_torch.mpc import runner
     from lap_time_optimization_tpu_torch.mpc import track as mpc_track
     from lap_time_optimization_tpu_torch.mpc.solver import SolverConfig
-    from lap_time_optimization_tpu_torch.ops import _build, ilqr, spline
+    from lap_time_optimization_tpu_torch.ops import _build, cycle_tail, ilqr, spline
     from lap_time_optimization_tpu_torch.ops import velocity_batch as vb
     from lap_time_optimization_tpu_torch.optim import global_search as gs
     from lap_time_optimization_tpu_torch.utils.config import Config
@@ -1637,6 +1783,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ilqr.build()
     vb.build()
+    cycle_tail.build()
     print(f"build: {time.perf_counter() - t0:.2f} s ({len(_build.SOURCES)} sources, one nvcc process each, "
           f"in parallel)")
     for line in _build.BUILD_LOG.splitlines():
@@ -1708,6 +1855,10 @@ def main(argv=None) -> int:
     print("solve kernel ablation at B=1 f32: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ablation.items())
           + f"; per iLQR iteration {per_it:.4f} ms; the RK4 chains ~{100 * rk4:.1f}% of the solve")
 
+    # ---------------------------------------------------------------- phase 16
+    # before the loops, which run the tail kernel every cycle
+    worst_tail_abs, p16_tail, tail_timed = phase_tail(device)
+
     # ---------------------------------------------------------------- phase 4
     x0_np = runner.X0_REFERENCE
     m64, p64 = load_main_path(device, torch.float64)
@@ -1727,7 +1878,7 @@ def main(argv=None) -> int:
     sim = runner.closed_loop(model, p, cfg, x0, args.steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, stray3 = read_counts()
+    launches, stray3, tails = read_counts()
     xs = sim.xs.cpu().numpy()
     applied = runner.applied_violation(model, p, sim)
     applied_pairs = runner.applied_violation(model, p, sim, pairing="applied")
@@ -1739,10 +1890,12 @@ def main(argv=None) -> int:
           f"each input with the state it was applied from: {applied_pairs:.3e}); "
           f"predicted violation {predicted:.3e} over the first {PREDICTED_WINDOW} cycles, "
           f"{float(viols.max()):.3e} over all (step {int(viols.argmax())}); "
-          f"solve-kernel launches {launches} ({launches / (args.steps + 2):.1f} per control cycle)")
-    if launches != args.steps + 2 or stray3 != 0:
+          f"solve-kernel launches {launches} ({launches / (args.steps + 2):.1f} per control cycle), "
+          f"tail-kernel launches {tails}")
+    if launches != args.steps + 2 or stray3 != 0 or tails != args.steps:
         raise AssertionError(f"{launches} solve-kernel launches, expected {args.steps + 2}; "
-                             f"{stray3} kernel-3 launches, expected 0")
+                             f"{stray3} kernel-3 launches, expected 0; {tails} tail-kernel launches, "
+                             f"expected {args.steps}")
     if xs.shape != (args.steps + 1, 8) or not np.all(np.isfinite(xs)):
         raise AssertionError("closed-loop states are not finite or of the wrong shape")
     if not np.all(np.diff(xs[:, 0]) > 0):
@@ -1769,7 +1922,7 @@ def main(argv=None) -> int:
     fleet = runner.closed_loop_batch(model, p, cfg, x0b, batch_steps)
     torch.cuda.synchronize()
     bwall = time.perf_counter() - t0
-    batch_launches, stray3 = read_counts()
+    batch_launches, stray3, batch_tails = read_counts()
     bxs = fleet.xs.cpu().numpy()
     per = [runner.applied_violation(model, p, runner.SimResult(*(a[b] for a in fleet)))
            for b in range(BATCH)]
@@ -1786,10 +1939,11 @@ def main(argv=None) -> int:
           f"{[round(v, 4) for v in per_pairs[FLEET_IN_BAND:]]}); predicted violation over all "
           f"{float(fleet.violations.max()):.3e}; "
           f"solve-kernel launches {batch_launches} ({batch_launches / (batch_steps + 2):.1f} "
-          f"per control cycle)")
-    if batch_launches != batch_steps + 2 or stray3 != 0:
+          f"per control cycle), tail-kernel launches {batch_tails}")
+    if batch_launches != batch_steps + 2 or stray3 != 0 or batch_tails != batch_steps:
         raise AssertionError(f"{batch_launches} solve-kernel launches, expected {batch_steps + 2}; "
-                             f"{stray3} kernel-3 launches, expected 0")
+                             f"{stray3} kernel-3 launches, expected 0; {batch_tails} tail-kernel launches, "
+                             f"expected {batch_steps}")
     if bxs.shape != (BATCH, batch_steps + 1, 8) or not np.all(np.isfinite(bxs)):
         raise AssertionError("fleet states are not finite or of the wrong shape")
     if not np.all(np.diff(bxs[:, :, 0], axis=1) > 0):
@@ -1825,9 +1979,9 @@ def main(argv=None) -> int:
     nl_lap, laps = lap_report(track, tbr18, best_x)
     print(f"nonlinear (tbr18, buckmore {WIDTH}, f32, seed 0, {nl.n_random} random, {nl.n_refine} refined, "
           f"{nl.max_iter} iterations, fused): {nl_wall:.2f} s; search lap {best_f:.4f} s, {laps} "
-          f"(gate {GATE_NONLINEAR:.3f}); launches (solve kernel, kernel 3) {nl_counts}")
-    if nl_counts != (0, 1):
-        raise AssertionError(f"nonlinear launches {nl_counts}, expected (0, 1)")
+          f"(gate {GATE_NONLINEAR:.3f}); launches (solve kernel, kernel 3, tail kernel) {nl_counts}")
+    if nl_counts != (0, 1, 0):
+        raise AssertionError(f"nonlinear launches {nl_counts}, expected (0, 1, 0)")
     if not (np.isfinite(nl_lap) and np.isfinite(best_f)):
         raise AssertionError("nonlinear lap is not finite")
     if not nl_lap < GATE_NONLINEAR:
@@ -1849,9 +2003,9 @@ def main(argv=None) -> int:
           f"per round, up to {bo.max_rounds} rounds, {bo.polish_iters} polish iterations, fused): "
           f"{bo_wall:.2f} s; {info['rounds']} rounds, {info['n_samples']} samples; timings "
           f"{json.dumps(info['timings'])}; search lap {bo_f:.4f} s, {laps} "
-          f"(gate {GATE_BAYES:.3f}); launches (solve kernel, kernel 3) {bo_counts}")
-    if bo_counts != (0, 1 + info["rounds"]):
-        raise AssertionError(f"bayesian launches {bo_counts}, expected (0, {1 + info['rounds']})")
+          f"(gate {GATE_BAYES:.3f}); launches (solve kernel, kernel 3, tail kernel) {bo_counts}")
+    if bo_counts != (0, 1 + info["rounds"], 0):
+        raise AssertionError(f"bayesian launches {bo_counts}, expected (0, {1 + info['rounds']}, 0)")
     if not (np.isfinite(bo_lap) and np.isfinite(bo_f)):
         raise AssertionError("bayesian lap is not finite")
     if not bo_f < GATE_BAYES:
@@ -1875,7 +2029,7 @@ def main(argv=None) -> int:
           f"bit-equal to phase 6: {same}; with gather's atomic backward: {atomic_wall:.2f} s, "
           f"bit-equal: {bool(torch.equal(atomic_x, best_x))} (the deterministic backward's cost: "
           f"{nl_wall - atomic_wall:+.2f} s over phase 6, {again_wall - atomic_wall:+.2f} s over this run)")
-    if not same or again_counts != (0, 1):
+    if not same or again_counts != (0, 1, 0):
         raise AssertionError(f"the seeded nonlinear search is not reproducible on the card "
                              f"(launches {again_counts})")
 
@@ -1893,7 +2047,7 @@ def main(argv=None) -> int:
           f"{WIDTH}, f32, 2 lines, 100 iterations): bit-equal {same_chunked}; n_iter {chunked_iters}; graph "
           f"captures (unchunked, chunked) {captures}; {walls[0]:.2f} s and {walls[1]:.2f} s; "
           f"launches {chunked_counts}")
-    if not same_chunked or captures != [1, 1] or chunked_counts != (0, 0):
+    if not same_chunked or captures != [1, 1] or chunked_counts != (0, 0, 0):
         raise AssertionError("the chunked L-BFGS run differs from the whole run, or captured its graph "
                              f"more than once ({captures})")
 
@@ -1906,9 +2060,9 @@ def main(argv=None) -> int:
         race_k3 += counts[1]
         print(f"race --{method} (tbr18, buckmore {WIDTH}, f32, fused): {wall:.2f} s; L-BFGS iterations "
               f"{iters}; graph captures {race_captures}; CLI lap {out['lap_time']:.4f} s (kernel 3), {laps} "
-              f"(gate {gate:.3f}); launches (solve kernel, kernel 3) {counts}")
-        if counts != (0, k3_expected):
-            raise AssertionError(f"--{method} launches {counts}, expected (0, {k3_expected})")
+              f"(gate {gate:.3f}); launches (solve kernel, kernel 3, tail kernel) {counts}")
+        if counts != (0, k3_expected, 0):
+            raise AssertionError(f"--{method} launches {counts}, expected (0, {k3_expected}, 0)")
         if method == "laptime" and race_captures != 1:
             raise AssertionError(f"--laptime captured its graph {race_captures} times, expected 1")
         if not (np.isfinite(lap) and lap < gate):
@@ -1929,7 +2083,7 @@ def main(argv=None) -> int:
           f"{mxs[-1, 0]:.2f} m, applied violation {runner.applied_violation(mmodel, p, msim):.3e} (JAX "
           f"pairing; with the state each input was applied from "
           f"{runner.applied_violation(mmodel, p, msim, pairing='applied'):.3e}); launches {m_counts}")
-    if counts != (0, 1) or m_counts != (ARTIFACT_STEPS + 2, 0):
+    if counts != (0, 1, 0) or m_counts != (ARTIFACT_STEPS + 2, 0, ARTIFACT_STEPS):
         raise AssertionError(f"launches {counts} writing the artifacts, {m_counts} in the loop")
     if mxs.shape != (ARTIFACT_STEPS + 1, 8) or not np.all(np.isfinite(mxs)):
         raise AssertionError("NMPC states on the CLI's artifacts are not finite")
@@ -2041,6 +2195,18 @@ def main(argv=None) -> int:
         print(f"kernel 3 device time per launch at B={B_l} N={N_l} {str(dtype)[6:]} tbr18 closed, global scratch "
               f"(W={vb.warps_for(B_l, n_sm)}, P={vb.SEGMENTS}): {t_l:.4f} ms; at N={n_samp} in shared memory "
               f"{k3_dev[dtype, K3_BATCH, vb.SEGMENTS]:.4f} ms; bound {bound_l[0] * 1e3:.3f} us ({bound_l[1]})")
+    # the tail kernel by its device time at the main paths' shapes, beside
+    # the plain tail's device time (what a graph of it replays) and its
+    # time per call (CUDA events, phase 16)
+    tail_ms = {}
+    for label, ((t_model, t_p, t_cfg, t_x, t_res, t_pk, t_rows, t_bound), t_plain) in tail_timed.items():
+        tail_ms[label] = device_ms(lambda: cycle_tail.tail(t_model, t_p, t_cfg, t_x, t_res, t_pk, t_rows), 200,
+                                   "cycle_tail_kernel")
+        plain_dev, plain_kernels = device_busy_ms(
+            lambda: cycle_tail.tail_reference(t_model, t_p, t_cfg, t_x, t_res.us, t_res.lam), 20)
+        print(f"tail kernel device time per launch at {label}: {tail_ms[label]:.5f} ms; plain tail "
+              f"{plain_dev:.4f} device ms in {plain_kernels:.0f} kernels, {t_plain:.4f} ms per call (CUDA events); "
+              f"bound {t_bound[0] * 1e6:.2f} ns ({t_bound[1]})")
     if args.profile:
         # the graphed loops (5 replays of G cycles), the eager loops for the
         # parent's reading (3 cycles), and one chunk of the graphed h20 lap
@@ -2058,6 +2224,10 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- phase 14
     print(f"solve-kernel launches on the NMPC paths: single stream {launches}, fleet {batch_launches}, "
           f"phase 9 {p9_solve}, phase 10 {p10_solve}, phase 13 {p13_solve}; kernel-3 launches in phase 10 {p10_k3}")
+    tail_launches = (p16_tail + tails + batch_tails + m_counts[2] + p9_out["tail_launches"]
+                     + p10_out["tail_launches"] + p13_out["tail_launches"])
+    main_tail = TIMED_TAILS[0]
+    tail_bound = tail_timed[main_tail][0][-1]
     print(json.dumps({"kernels": [{
         "name": "ilqr_solve",
         "route": "cuda",
@@ -2082,6 +2252,19 @@ def main(argv=None) -> int:
         "plain_ms": k3_twin_ms,
         "bound_ms": k3_bound[0],
         "bound_by": k3_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "cycle_tail",
+        "route": "cuda",
+        "source": "lap_time_optimization_tpu_torch/csrc/cycle_tail.cu",
+        "replaces": "none: the tail of lap_time_optimization_tpu/mpc/runner.py:54 _step_fn and :284 "
+                    "_step_fn_batch, fused by XLA",
+        "launches": tail_launches,
+        "max_abs_err": worst_tail_abs,
+        "ms": tail_ms[main_tail],  # device time at the single stream's shape
+        "plain_ms": tail_timed[main_tail][1],
+        "bound_ms": tail_bound[0],
+        "bound_by": tail_bound[1],
         "library_ms": None,
     }]}))
     print(f"card: {smi}")

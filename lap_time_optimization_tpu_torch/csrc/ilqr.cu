@@ -83,6 +83,10 @@
 // the compiler emits the same arithmetic and the placements give the same
 // bits.
 //
+// The model's device functions (the track lookup, the tyres, the RHS, its
+// directional derivative, the RK4 step) are in bicycle.cuh, which
+// cycle_tail.cu's kernel, the plant of the closed loop, includes too.
+//
 // C interface (one entry point per type): every pointer is a contiguous
 // device buffer in the layouts of ops/ilqr.py::solve (a leading instance
 // axis B); `global_table` picks the table's placement and a non-null
@@ -97,267 +101,15 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "bicycle.cuh"
+
 namespace {
 
-constexpr int NX = 8;
-constexpr int NU = 2;
-constexpr int NZ = NX + NU;  // augmented state [x, u_prev]
 constexpr int NQ = NZ + NU;  // quad variables [z, u]
 constexpr int N_CON = 14;
 constexpr int WARP = 32;
 constexpr int MAX_WARPS = 4;
 constexpr size_t MAX_SMEM = 232448;  // what one block may hold on sm_90
-
-// scalar-vector layout: must mirror ops/ilqr.py SCAL_FIELDS[2:] (scal_tail)
-enum Scal {
-  S_MAX, INV_DS, H,
-  MASS, LF, LR, IZ,
-  BF, CF, DF, BR, CR, DR,
-  CM, CR0, CR2,
-  QN, QMU, QB, RDELTA, RTHR, VREF_SCALE,
-  MU_MAX, STEER_MAX, THR_MAX, DSTEER_MAX, DTHR_MAX,
-  HALF_LEN, HALF_WID, MARGIN, PTV,
-  NS
-};
-
-constexpr double GRAV = 9.81;
-
-__device__ __forceinline__ float m_sin(float x) { return sinf(x); }
-__device__ __forceinline__ double m_sin(double x) { return sin(x); }
-__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
-__device__ __forceinline__ double m_cos(double x) { return cos(x); }
-__device__ __forceinline__ float m_tan(float x) { return tanf(x); }
-__device__ __forceinline__ double m_tan(double x) { return tan(x); }
-__device__ __forceinline__ float m_atan(float x) { return atanf(x); }
-__device__ __forceinline__ double m_atan(double x) { return atan(x); }
-__device__ __forceinline__ float m_atan2(float y, float x) { return atan2f(y, x); }
-__device__ __forceinline__ double m_atan2(double y, double x) { return atan2(y, x); }
-__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float m_fmod(float x, float y) { return fmodf(x, y); }
-__device__ __forceinline__ double m_fmod(double x, double y) { return fmod(x, y); }
-__device__ __forceinline__ float m_floor(float x) { return floorf(x); }
-__device__ __forceinline__ double m_floor(double x) { return floor(x); }
-__device__ __forceinline__ bool m_finite(float x) { return isfinite(x); }
-__device__ __forceinline__ bool m_finite(double x) { return isfinite(x); }
-__device__ __forceinline__ float m_inf(float) { return CUDART_INF_F; }
-__device__ __forceinline__ double m_inf(double) { return CUDART_INF; }
-
-// max(0, x) that keeps NaN, as jnp.maximum / torch.clamp do
-template <typename T>
-__device__ __forceinline__ T relu_nan(T x) { return x < T(0) ? T(0) : x; }
-
-// max that propagates NaN, as torch.maximum / amax do
-template <typename T>
-__device__ __forceinline__ T max_nan(T m, T x) { return (x > m || x != x) && m == m ? x : m; }
-
-// Cell of the uniform arc grid holding s (mpc/track.py MPCTrack._cell): the
-// lap wrap as torch.remainder, the index clipped to [0, n-2] as an integer
-// (NaN to 0), and the unclipped frac.
-template <typename T>
-__device__ __forceinline__ int cell(int n, T s, const T* sc, T& frac) {
-  const T s_max = sc[S_MAX];
-  T sw = m_fmod(s, s_max);
-  if (sw != T(0) && ((sw < T(0)) != (s_max < T(0)))) sw += s_max;
-  const T t = sw * sc[INV_DS];
-  int i;
-  if (t >= T(n - 2)) i = n - 2;
-  else if (t >= T(0)) i = (int)m_floor(t);
-  else i = 0;  // negative or NaN
-  frac = t - T(i);
-  return i;
-}
-
-template <typename T>
-__device__ __forceinline__ T clip01(T f) { return f < T(0) ? T(0) : (f > T(1) ? T(1) : f); }
-
-// piecewise-linear lookup of one table row (MPCTrack._uinterp)
-template <typename T>
-__device__ T lookup(const T* row, int n, T s, const T* sc) {
-  T frac;
-  const int i = cell(n, s, sc, frac);
-  frac = clip01(frac);
-  return row[i] * (T(1) - frac) + row[i + 1] * frac;
-}
-
-// value and slope (MPCTrack._uinterp_d): full slope inside the cell, half
-// where frac sits exactly on a clip bound, zero beyond
-template <typename T>
-__device__ T lookup_d(const T* row, int n, T s, const T* sc, T& slope) {
-  T frac;
-  const int i = cell(n, s, sc, frac);
-  const T gain = (frac > T(0) && frac < T(1)) ? T(1)
-                 : ((frac == T(0) || frac == T(1)) ? T(0.5) : T(0));
-  const T lo = row[i], hi = row[i + 1];
-  slope = (hi - lo) * sc[INV_DS] * gain;
-  frac = clip01(frac);
-  return lo * (T(1) - frac) + hi * frac;
-}
-
-template <typename T>
-struct Tyres {
-  T Fy_f, Fy_r;
-};
-
-// negated Pacejka lateral forces with the static load split
-template <typename T>
-__device__ Tyres<T> tyre_forces(T vx, T vy, T r, T delta, const T* sc) {
-  const T lf = sc[LF], lr = sc[LR], m = sc[MASS];
-  const T alpha_f = m_atan2(vy + lf * r, vx) - delta;
-  const T alpha_r = m_atan2(vy - lr * r, vx);
-  const T wheelbase = lf + lr;
-  const T Fn_f = lr * m * T(GRAV) / wheelbase;
-  const T Fn_r = lf * m * T(GRAV) / wheelbase;
-  Tyres<T> out;
-  out.Fy_f = -Fn_f * sc[DF] * m_sin(sc[CF] * m_atan(sc[BF] * alpha_f));
-  out.Fy_r = -Fn_r * sc[DR] * m_sin(sc[CR] * m_atan(sc[BR] * alpha_r));
-  return out;
-}
-
-// the forces and their partials (BicycleModel.tyre_partials): dFy_f w.r.t.
-// (vx, vy, r, delta), dFy_r w.r.t. (vx, vy, r)
-template <typename T>
-struct TyreD {
-  T Fy_f, Fy_r, f_vx, f_vy, f_r, f_d, r_vx, r_vy, r_r;
-};
-
-template <typename T>
-__device__ TyreD<T> tyre_partials(T vx, T vy, T r, T delta, const T* sc) {
-  const T lf = sc[LF], lr = sc[LR], m = sc[MASS];
-  const T yf = vy + lf * r, yr = vy - lr * r;
-  const T alpha_f = m_atan2(yf, vx) - delta;
-  const T alpha_r = m_atan2(yr, vx);
-  const T wheelbase = lf + lr;
-  const T Fn_f = lr * m * T(GRAV) / wheelbase;
-  const T Fn_r = lf * m * T(GRAV) / wheelbase;
-  const T bf = sc[BF] * alpha_f, br = sc[BR] * alpha_r;
-  const T atf = m_atan(bf), atr = m_atan(br);
-  TyreD<T> o;
-  o.Fy_f = -Fn_f * sc[DF] * m_sin(sc[CF] * atf);
-  o.Fy_r = -Fn_r * sc[DR] * m_sin(sc[CR] * atr);
-  const T gf = -Fn_f * sc[DF] * m_cos(sc[CF] * atf) * sc[CF] * sc[BF] / (T(1) + bf * bf);
-  const T gr = -Fn_r * sc[DR] * m_cos(sc[CR] * atr) * sc[CR] * sc[BR] / (T(1) + br * br);
-  // d atan2(y, x) = (x dy - y dx) / (x^2 + y^2)
-  const T qf = gf / (vx * vx + yf * yf);
-  const T qr = gr / (vx * vx + yr * yr);
-  o.f_vx = -yf * qf;
-  o.f_vy = vx * qf;
-  o.f_r = lf * vx * qf;
-  o.f_d = -gf;
-  o.r_vx = -yr * qr;
-  o.r_vy = vx * qr;
-  o.r_r = -lr * vx * qr;
-  return o;
-}
-
-// curvilinear bicycle RHS (models/bicycle.py BicycleModel.rhs, torque
-// vectoring included: ptv is 0 when the model has it off)
-template <typename T>
-__device__ void rhs(const T* x, const T* u, const T* tab, int n, const T* sc, T* xdot) {
-  const T s = x[0], nn = x[1], mu = x[2], vx = x[3], vy = x[4], r = x[5];
-  const T delta = x[6], thr = x[7];
-  const T m = sc[MASS], lf = sc[LF], lr = sc[LR];
-  const T k = lookup(tab, n, s, sc);
-  const T cos_mu = m_cos(mu), sin_mu = m_sin(mu);
-  const T sdot = (vx * cos_mu - vy * sin_mu) / (T(1) - nn * k);
-  const Tyres<T> f = tyre_forces(vx, vy, r, delta, sc);
-  const T Fx = sc[CM] * thr - sc[CR0] - sc[CR2] * vx * vx;
-  const T cos_d = m_cos(delta), sin_d = m_sin(delta);
-  const T rt = m_tan(delta) * vx / (lf + lr);
-  const T Mtv = sc[PTV] * (rt - r);
-  xdot[0] = sdot;
-  xdot[1] = vx * sin_mu + vy * cos_mu;
-  xdot[2] = r - k * sdot;
-  xdot[3] = (Fx - f.Fy_f * sin_d + m * vy * r) / m;
-  xdot[4] = (f.Fy_r + f.Fy_f * cos_d - m * vx * r) / m;
-  xdot[5] = (f.Fy_f * lf * cos_d - f.Fy_r * lr + Mtv) / sc[IZ];
-  xdot[6] = u[0];
-  xdot[7] = u[1];
-}
-
-// The RHS and its directional derivative along one tangent column:
-// dxdot = d rhs/dx . v + d rhs/du e_col (col 8, 9 are the inputs), with the
-// partials of BicycleModel.rhs_and_jacobian.
-template <typename T>
-__device__ void rhs_jvp(const T* x, const T* v, const T* u, int col, const T* tab, int n,
-                        const T* sc, T* xdot, T* dxdot) {
-  const T s = x[0], nn = x[1], mu = x[2], vx = x[3], vy = x[4], r = x[5];
-  const T delta = x[6], thr = x[7];
-  const T m = sc[MASS], lf = sc[LF], lr = sc[LR], Iz = sc[IZ], ptv = sc[PTV];
-  T dk;
-  const T k = lookup_d(tab, n, s, sc, dk);
-  const T cos_mu = m_cos(mu), sin_mu = m_sin(mu);
-  const T den = T(1) - nn * k;
-  const T num = vx * cos_mu - vy * sin_mu;
-  const T sdot = num / den;
-  const T sd_s = sdot * nn * dk / den;
-  const T sd_n = sdot * k / den;
-  const T sd_mu = (-vx * sin_mu - vy * cos_mu) / den;
-  const T sd_vx = cos_mu / den;
-  const T sd_vy = -sin_mu / den;
-  const TyreD<T> t = tyre_partials(vx, vy, r, delta, sc);
-  const T Fx = sc[CM] * thr - sc[CR0] - sc[CR2] * vx * vx;
-  const T cos_d = m_cos(delta), sin_d = m_sin(delta);
-  const T tan_d = m_tan(delta);
-  const T rt = tan_d * vx / (lf + lr);
-  const T yaw = t.Fy_f * lf * cos_d - t.Fy_r * lr + ptv * (rt - r);
-  const T m_vx = ptv * tan_d / (lf + lr);
-  const T m_r = -ptv;
-  const T m_d = ptv * vx * (T(1) + tan_d * tan_d) / (lf + lr);
-  xdot[0] = sdot;
-  xdot[1] = vx * sin_mu + vy * cos_mu;
-  xdot[2] = r - k * sdot;
-  xdot[3] = (Fx - t.Fy_f * sin_d + m * vy * r) / m;
-  xdot[4] = (t.Fy_r + t.Fy_f * cos_d - m * vx * r) / m;
-  xdot[5] = yaw / Iz;
-  xdot[6] = u[0];
-  xdot[7] = u[1];
-  dxdot[0] = sd_s * v[0] + sd_n * v[1] + sd_mu * v[2] + sd_vx * v[3] + sd_vy * v[4];
-  dxdot[1] = num * v[2] + sin_mu * v[3] + cos_mu * v[4];
-  dxdot[2] = -(dk * sdot + k * sd_s) * v[0] + (-k * sd_n) * v[1] + (-k * sd_mu) * v[2] +
-             (-k * sd_vx) * v[3] + (-k * sd_vy) * v[4] + v[5];
-  dxdot[3] = ((T(-2) * sc[CR2] * vx - t.f_vx * sin_d) / m) * v[3] +
-             ((-t.f_vy * sin_d + m * r) / m) * v[4] + ((-t.f_r * sin_d + m * vy) / m) * v[5] +
-             ((-t.f_d * sin_d - t.Fy_f * cos_d) / m) * v[6] + (sc[CM] / m) * v[7];
-  dxdot[4] = ((t.r_vx + t.f_vx * cos_d - m * r) / m) * v[3] +
-             ((t.r_vy + t.f_vy * cos_d) / m) * v[4] +
-             ((t.r_r + t.f_r * cos_d - m * vx) / m) * v[5] +
-             ((t.f_d * cos_d - t.Fy_f * sin_d) / m) * v[6];
-  dxdot[5] = ((t.f_vx * lf * cos_d - t.r_vx * lr + m_vx) / Iz) * v[3] +
-             ((t.f_vy * lf * cos_d - t.r_vy * lr) / Iz) * v[4] +
-             ((t.f_r * lf * cos_d - t.r_r * lr + m_r) / Iz) * v[5] +
-             ((t.f_d * lf * cos_d - t.Fy_f * lf * sin_d + m_d) / Iz) * v[6];
-  dxdot[6] = col == NX ? T(1) : T(0);
-  dxdot[7] = col == NX + 1 ? T(1) : T(0);
-}
-
-// augmented RK4 step: x integrates over `substeps` increments, u_prev := u
-template <typename T>
-__device__ void dyn_step(T* z, const T* u, const T* tab, int n, const T* sc, int substeps) {
-  const T h = sc[H];
-  T x[NX], k1[NX], k2[NX], k3[NX], k4[NX], xt[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = z[i];
-  for (int sub = 0; sub < substeps; ++sub) {
-    rhs(x, u, tab, n, sc, k1);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xt[i] = x[i] + T(0.5) * h * k1[i];
-    rhs(xt, u, tab, n, sc, k2);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xt[i] = x[i] + T(0.5) * h * k2[i];
-    rhs(xt, u, tab, n, sc, k3);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xt[i] = x[i] + h * k3[i];
-    rhs(xt, u, tab, n, sc, k4);
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-      x[i] = x[i] + (h / T(6)) * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) z[i] = x[i];
-  z[NX] = u[0];
-  z[NX + 1] = u[1];
-}
 
 // One tangent column of the step's Jacobian w.r.t. [x, u]
 // (BicycleModel.step_and_jacobian): column col of dX, starting from

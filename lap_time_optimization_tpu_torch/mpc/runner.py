@@ -10,13 +10,15 @@ integrates the plant (plant == model, like the reference's do_mpc simulator
 over the same ODE).  The cycle code takes any leading instance shape: the
 batched loop runs it on (B, ...) with `solver.solve_batch`.
 
-On a CUDA device a Gauss-Newton loop is the counterpart of the JAX runner's
-single `lax.scan` and `_const_jit`: its cycles run as captured CUDA graphs
-of `GRAPH_CYCLES` cycles each (`_Program`), replayed from the host with no
-sync, so the host no longer enqueues the ~735 small kernels of every cycle
-around the solve kernel.  A program reads its carry from, and writes it
-back in place to, fixed tensors and writes its cycles' outputs into fixed
-(..., G, ·) buffers, which one copy per field moves into the caller's
+On the card a cycle is three kernels: the concatenation of z0, the solve
+kernel and the tail kernel (`ops.cycle_tail`: the clip, the plant step, the
+warm-start shift and the cycle's outputs in one launch), which the eager and
+the graphed loops both run.  A Gauss-Newton loop there is the counterpart
+of the JAX runner's single `lax.scan` and `_const_jit`: its cycles run as
+captured CUDA graphs of `GRAPH_CYCLES` cycles each (`_Program`), replayed
+from the host with no sync.  A program reads its carry from, and writes it
+back in place to, fixed tensors and has its cycles' outputs written into
+fixed (..., G, ·) buffers, which one copy per field moves into the caller's
 `SimResult` after each replay; a tail of fewer cycles gets a program of its
 own length.  Programs are cached by everything their graph depends on
 (`_program_key`: both model flags, the whole `SolverConfig`, dtype, device,
@@ -52,7 +54,7 @@ import torch
 from lap_time_optimization_tpu_torch.models.bicycle import NU, NX
 from lap_time_optimization_tpu_torch.mpc import solver as solver_mod
 from lap_time_optimization_tpu_torch.mpc.solver import n_con
-from lap_time_optimization_tpu_torch.ops import ilqr
+from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr
 from lap_time_optimization_tpu_torch.parallel.distributed import gather_rows, shard_rows
 from lap_time_optimization_tpu_torch.utils import checkpoint, profiling
 
@@ -94,32 +96,19 @@ def _presolve(model, p, cfg, x0, pack=None):
     return (x0, us_warm, lam_warm, u_prev)
 
 
-def _step_fn(model, p, cfg, carry, pack=None):
+def _step_fn(model, p, cfg, carry, pack=None, rows=None):
     """One control cycle: solve, clip the applied input, integrate the plant,
     shift the warm start.  Returns (carry, (x_next, u0, cost, violation, sdot)).
     A fleet's cycle is one `solver.solve_batch` for all B instances, then the
-    elementwise clip and the plant step on (B, ...)."""
+    clip and the plant step on (B, ...).  All after the solve is the tail
+    (`ops.cycle_tail.tail`): one kernel on the card, the plain code on the
+    CPU.  With `rows`, views into the outputs (the xs and us rows, the cost,
+    violation and sdot entries), the tail writes the cycle's outputs there
+    and returns them as the outputs."""
     x, us_warm, lam_warm, u_prev = carry
     z0 = torch.cat([x, u_prev], dim=-1)
     res = _solve(x)(model, p, cfg, z0, us_warm, lam_warm, pack)
-    # actuator saturation: the AL solver leaves O(1e-2) slack on the input
-    # boxes at fixed iteration budgets; the physical actuators (and the
-    # reference's hard NLP bounds, src/mpc/controller.py:79-103) cannot
-    # exceed them, so the APPLIED input is clipped to the rate limits and so
-    # that the integrated steer/throttle states stay inside their boxes
-    rate_lim = torch.stack([p.dsteer_max, p.dthrottle_max])
-    box = torch.stack([p.steer_max, p.throttle_max])
-    act = x[..., 6:8]
-    lo = torch.maximum(-rate_lim, (-box - act) / cfg.dt)
-    hi = torch.minimum(rate_lim, (box - act) / cfg.dt)
-    u0 = torch.clamp(res.us[..., 0, :], lo, hi)
-    x_next = model.step(x, u0, cfg.dt, substeps=cfg.substeps)
-    # shift warm starts one stage forward
-    us_next = torch.cat([res.us[..., 1:, :], res.us[..., -1:, :]], dim=-2)
-    lam_next = torch.cat([res.lam[..., 1:, :], res.lam[..., -1:, :]], dim=-2)
-    sdot = (x_next[..., 0] - x[..., 0]) / cfg.dt
-    out = (x_next, u0, res.cost, res.max_violation, sdot)
-    return (x_next, us_next, lam_next, u0), out
+    return cycle_tail.tail(model, p, cfg, x, res, pack, rows)
 
 
 def _empty_result(x0, steps) -> SimResult:
@@ -165,12 +154,13 @@ class _Program:
     """`cycles` control cycles of one loop over fixed tensors: the carry
     (x, us_warm, lam_warm, u_prev), read at the start and written back in
     place at the end (the counterpart of a scan's carry), and the outputs, a
-    `SimResult` of (..., cycles, ·) buffers.  The body runs `_step_fn` in
-    `_advance`'s order, so it gives `_advance`'s bits.  `capture` records
-    the body as one CUDA graph, which `run` then replays; uncaptured, `run`
-    runs the body (the CPU tests hold it to `_advance`).  The program holds its model, OCP
-    parameters and pack (`ops.ilqr.pack`, built once), so the ids in its key
-    stay theirs while it lives."""
+    `SimResult` of (..., cycles, ·) buffers, which each cycle's tail writes
+    its row of.  The body runs `_step_fn` in `_advance`'s order, so it gives
+    `_advance`'s bits.  `capture` records the body as one CUDA graph, which
+    `run` then replays; uncaptured, `run` runs the body (the CPU tests hold
+    it to `_advance`).  The program holds its model, OCP parameters and pack
+    (`ops.ilqr.pack`, built once), so the ids in its key stay theirs while
+    it lives."""
 
     def __init__(self, model, p, cfg, lead: tuple, cycles: int, dtype, device):
         self.model, self.p, self.cfg, self.cycles = model, p, cfg, cycles
@@ -181,17 +171,15 @@ class _Program:
         self.outs = SimResult(new(cycles, NX), new(cycles, NU), new(cycles), new(cycles), new(cycles))
         self.graph = None
         self.launches = 0  # solve launches one replay runs
+        self.tail_launches = 0  # tail launches one replay runs
         self.pool_bytes = 0  # the bytes the capture's pool reserved
 
     def body(self):
-        carry = self.carry
+        carry, outs = self.carry, self.outs
         for g in range(self.cycles):
-            carry, (x_next, u0, cost, viol, sdot) = _step_fn(self.model, self.p, self.cfg, carry, self.pack)
-            self.outs.xs[..., g, :] = x_next
-            self.outs.us[..., g, :] = u0
-            self.outs.costs[..., g] = cost
-            self.outs.violations[..., g] = viol
-            self.outs.sdot[..., g] = sdot
+            rows = (outs.xs[..., g, :], outs.us[..., g, :], outs.costs[..., g], outs.violations[..., g],
+                    outs.sdot[..., g])
+            carry, _ = _step_fn(self.model, self.p, self.cfg, carry, self.pack, rows)
         for dst, src in zip(self.carry, carry):
             dst.copy_(src)
 
@@ -200,13 +188,14 @@ class _Program:
         one warm-up cycle on a side stream (the kernel library's build and
         module load, lazy handles; its result is dropped and the carry left
         as it was), then the body once under `torch.cuda.graph`.  The solves
-        of both count in `CAPTURE_LAUNCHES`, not in `ops.ilqr.SOLVE_LAUNCHES`.
+        of both count in `CAPTURE_LAUNCHES`, not in `ops.ilqr.SOLVE_LAUNCHES`,
+        and their tails not in `ops.cycle_tail.TAIL_LAUNCHES`.
         A host span, `runner.capture` (attribute `pool_bytes`), with the
         children `.warmup`, `.record` (the body under capture) and
         `.instantiate` (ending the capture).  A failure raises."""
         global GRAPH_CAPTURES, CAPTURE_LAUNCHES
         device = self.carry[0].device
-        before = ilqr.SOLVE_LAUNCHES
+        before, tails_before = ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES
         try:
             with profiling.span("runner.capture") as attrs, torch.cuda.device(device):
                 with profiling.span("runner.capture.warmup"):
@@ -221,9 +210,10 @@ class _Program:
                     with torch.cuda.graph(graph):
                         with profiling.span("runner.capture.record"):
                             reserved = torch.cuda.memory_reserved(device)
-                            recorded = ilqr.SOLVE_LAUNCHES
+                            recorded, tails = ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES
                             self.body()
                             self.launches = ilqr.SOLVE_LAUNCHES - recorded
+                            self.tail_launches = cycle_tail.TAIL_LAUNCHES - tails
                         # closed by `ending` once the graph's context has ended the capture
                         ending.enter_context(profiling.span("runner.capture.instantiate"))
                 self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
@@ -232,6 +222,7 @@ class _Program:
         finally:
             CAPTURE_LAUNCHES += ilqr.SOLVE_LAUNCHES - before
             ilqr.SOLVE_LAUNCHES = before
+            cycle_tail.TAIL_LAUNCHES = tails_before
         self.graph = graph
         GRAPH_CAPTURES += 1
 
@@ -241,6 +232,7 @@ class _Program:
         else:
             self.graph.replay()
             ilqr.SOLVE_LAUNCHES += self.launches
+            cycle_tail.TAIL_LAUNCHES += self.tail_launches
 
 
 def _program_key(model, p, cfg, x0, cycles: int) -> tuple:

@@ -3,9 +3,10 @@
 Every source under `csrc/` is compiled by its own `nvcc` process, all
 started together, and the objects are linked into one shared library with a
 plain C interface, at first use, into `build/torch_kernels/` (listed in
-`.gitignore`), keyed by a hash of the sources and the flags.  The
-wrappers (`ops/ilqr.py`, `ops/velocity_batch.py`) call `load()` and set the
-ctypes signatures of the entry points they use.  Nothing here runs at import
+`.gitignore`), keyed by a hash of the sources, the headers they include and
+the flags.  The wrappers (`ops/ilqr.py`, `ops/velocity_batch.py`,
+`ops/cycle_tail.py`) call `load()` and set the ctypes signatures of the
+entry points they use.  Nothing here runs at import
 time, so importing the package needs no CUDA toolkit.
 """
 
@@ -18,7 +19,9 @@ import shutil
 import subprocess
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in ("ilqr.cu", "velocity.cu"))
+SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name) for name in ("ilqr.cu", "velocity.cu", "cycle_tail.cu"))
+#: Headers the sources include: part of the library's hash, not compiled alone.
+HEADERS = (os.path.join(_PKG_DIR, "csrc", "bicycle.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,13 +46,13 @@ def _nvcc() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """Compile every source (once per hash of sources and flags; one nvcc
+    """Compile every source (once per hash of sources, headers and flags; one nvcc
     process per source, in parallel), link them and load the library."""
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in SOURCES:
+    for path in SOURCES + HEADERS:
         with open(path, "rb") as fh:
             digest.update(fh.read())
     so = os.path.join(BUILD_DIR, f"lto_kernels_{digest.hexdigest()[:16]}.so")
