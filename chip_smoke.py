@@ -106,7 +106,14 @@ Phases:
    one in f64, written as track JSONs in a temporary directory, 32 rows of
    each against the twin on the CPU; (f) `--curvature --solver fused`
    through the CLI on the 20 km circuit, its lap against the scan oracle's
-   on the same line;
+   on the same line; (g) the solve kernel at the fleet's B = 4096 (h10
+   f32) on buckmore with its table in shared memory, the same launch with
+   the table forced into global memory (bit-equal), and on the benchmark's
+   full-length circuit (20,831 samples; `tools/make_circuit.py`), which
+   takes the global placement: blocks per SM
+   (`ops.ilqr.blocks_per_sm`), launches by placement
+   (`ops.ilqr.PLACEMENT_LAUNCHES`) and the time per launch (CUDA events),
+   so that the placement is told apart from the table's length;
 11. kernel 3 vs its twin on 1024 real candidate geometries (closed,
    B=1024, N=846; open, the first 300 samples; ragged B=160), on the
    sector windows of phase 8 (open, B = sectors × 8, N = the windows'
@@ -306,6 +313,8 @@ ACCURATE_F32_COST_TOL = 1e-2
 # on the card would take ~50 s at N = 20,831; on the CPU it takes numpy's
 # correctly rounded sqrt, as the card's is, so the kernel's bits are its).
 LONG_NS, SPA_NS = 20832, 7004
+# Phase 10 (g): the fleet's B.
+FLEET_B = 4096
 LONG_STEPS, LONG_FLEET_STEPS = 100, 20
 LONG_ROWS = 32
 # bench.py's fleet on the long table: the JAX package's own controller (XLA,
@@ -1336,9 +1345,57 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
             raise AssertionError("the long --curvature lap disagrees with the scan oracle")
         k3_n += counts[1]
         out["race_s"] = wall
+    solve_n += fleet_placements(device, cfg, out)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 10: {out['phase_s']:.1f} s")
     return solve_n, k3_n, out, long_k3, worst
+
+
+def fleet_placements(device, cfg, out, reps: int = 10) -> int:
+    """Phase 10 (g): the solve kernel at h10 f32 and B = FLEET_B, from
+    `fleet_states` (starts over the whole lap, 4-12 m/s), on buckmore in the
+    shared placement, on buckmore with the table forced into global memory
+    (bit-equal to the shared launch), and on the benchmark's full-length
+    circuit (`data/plots/MX-5/circuit20832/curvature`, 20,831 samples),
+    whose table takes the global placement: each case's placement, blocks
+    per SM, launches by placement and ms per launch (CUDA events over
+    `reps` launches after one) into `out`.  Returns the solve launches."""
+    from lap_time_optimization_tpu_torch.models import load_vehicle
+    from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
+    from lap_time_optimization_tpu_torch.mpc import track as mpc_track
+    from lap_time_optimization_tpu_torch.mpc.solver import OCPParams
+    from lap_time_optimization_tpu_torch.ops import ilqr
+
+    dtype, N, L = torch.float32, cfg.horizon, cfg.n_linesearch
+    circuit = mpc_track.load("MX-5", "circuit20832", "curvature", base_dir=os.path.join(ROOT, "data"))
+    buckmore = load_main_path(device, dtype)
+    cases = (("buckmore shared", buckmore, False, "shared"), ("buckmore forced global", buckmore, True, "global"),
+             ("circuit20832", (BicycleModel(load_vehicle("MX5"), circuit).to(device, dtype),
+                               OCPParams.reference(dtype, device, lateral_margin=0.05)), False, "global"))
+    launches, shared_out = 0, None
+    for label, (model, p), force, expect in cases:
+        pk = ilqr.pack(model, p, cfg)
+        n = pk.tables.shape[-1]
+        sargs = solve_inputs(model, cfg, fleet_states(model.track, FLEET_B), 2.0, 3)
+        where = ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, force_global=force)
+        blocks = ilqr.blocks_per_sm(dtype, where, N, L, 14, n)
+        smem = ilqr.smem_bytes(dtype, where.warps, N, L, 14, n, where.global_table)
+        placed = dict(ilqr.PLACEMENT_LAUNCHES)
+        got = ilqr._launch(cfg, *sargs, pk, force_global=force)
+        ms = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, force_global=force), reps)
+        moved = {k: v - placed[k] for k, v in ilqr.PLACEMENT_LAUNCHES.items()}
+        launches += reps + 2
+        shared_out = shared_out or got
+        equal = not force or all(torch.equal(a, b) for a, b in zip(got, shared_out))
+        print(f"solve kernel h10 f32 B={FLEET_B} {label}: n={n}, placement {where.name} ({where.warps} OCPs a "
+              f"block, {smem} B of shared memory a block), {blocks} blocks per SM ({blocks * where.warps} warps); "
+              f"launches by placement {moved}; {ms:.4f} ms per launch (CUDA events, {reps})"
+              + (f"; bit-equal to the shared launch {equal}" if force else ""))
+        if where.name != expect or moved != {**dict.fromkeys(moved, 0), expect: reps + 2} or not equal:
+            raise AssertionError(f"{label}: placement {where.name}, launches {moved}, bit-equal to the shared "
+                                 f"launch {equal}; expected {expect}")
+        out[f"fleet_{label}"] = {"placement": where.name, "blocks_per_sm": blocks, "smem_bytes": smem, "ms": ms}
+    return launches
 
 
 def lap_gates(model, p, sim, window: int):

@@ -94,7 +94,8 @@
 // the workspace placement, whose table is in global memory; the launch goes
 // onto `stream`, allocates nothing and returns cudaGetLastError().
 // lto_ilqr_solve_smem_bytes gives the dynamic shared memory of a launch in
-// shared memory, or 0 for sizes it does not take.
+// shared memory, or 0 for sizes it does not take; lto_ilqr_solve_blocks_per_sm
+// the blocks of a placement that one SM holds at once.
 
 #include <climits>
 
@@ -751,6 +752,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The instantiation of a placement: the table in global memory (gtab), the
+// scalars and slices in the workspace (ws).
+template <typename T>
+auto solve_kernel(bool gtab, bool ws) {
+  return ws ? ilqr_solve_kernel<T, true, true>
+            : (gtab ? ilqr_solve_kernel<T, true, false> : ilqr_solve_kernel<T, false, false>);
+}
+
 template <typename T>
 int launch_solve(const T* z0, const T* us_init, const T* lam_init, const T* tables,
                  const T* alphas, const T* scal, T* us_out, T* zs_out, T* lam_out, T* cost_out,
@@ -762,13 +771,32 @@ int launch_solve(const T* z0, const T* us_init, const T* lam_init, const T* tabl
       al_iters < 0 || ilqr_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = ws ? ilqr_solve_kernel<T, true, true>
-                   : (gtab ? ilqr_solve_kernel<T, true, false> : ilqr_solve_kernel<T, false, false>);
+  auto kernel = solve_kernel<T>(gtab, ws != nullptr);
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (Bt + W - 1) / W;
   kernel<<<grid, W * WARP, bytes, static_cast<cudaStream_t>(stream)>>>(z0, us_init, lam_init, tables, alphas, scal, us_out, zs_out, lam_out, cost_out, viol_out, ws, Bt, W, N, L, n_con, n, substeps, al_iters, ilqr_iters, T(rho_init), T(rho_scale), T(reg_init));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of W OCPs that one SM holds at once in a placement, at the
+// launch's dynamic shared memory: what its registers, shared memory and
+// threads allow together (cudaOccupancyMaxActiveBlocksPerMultiprocessor on
+// the current device); minus the cudaError_t where it fails or the sizes are
+// refused.
+template <typename T>
+int solve_blocks_per_sm(int W, int N, int L, int n_con, int n, int gtab, int ws) {
+  const size_t bytes = ws ? 0 : solve_smem_bytes<T>(W, N, L, n_con, n, gtab);
+  if (ws ? !solve_sizes_ok(W, N, L, n_con) || n < 2 : bytes == 0) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = solve_kernel<T>(gtab || ws, ws);
+  cudaError_t err = allow_smem(kernel, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, W * WARP, bytes);
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -815,4 +843,14 @@ extern "C" long long lto_ilqr_solve_smem_bytes(int elem_size, int W, int N, int 
 // workspace placement, 0 if refused.
 extern "C" long long lto_ilqr_solve_workspace_elems(int W, int N, int L, int n_con) {
   return static_cast<long long>(solve_workspace_elems(W, N, L, n_con));
+}
+
+// Blocks per SM of a launch (element size 4 or 8) of W OCPs a block with the
+// table in shared (global_table = 0) or global memory, or in the workspace
+// placement (workspace = 1); minus the cudaError_t where it fails.
+extern "C" int lto_ilqr_solve_blocks_per_sm(int elem_size, int W, int N, int L, int n_con, int n,
+                                            int global_table, int workspace) {
+  return elem_size == 8
+             ? solve_blocks_per_sm<double>(W, N, L, n_con, n, global_table, workspace)
+             : solve_blocks_per_sm<float>(W, N, L, n_con, n, global_table, workspace);
 }

@@ -150,6 +150,21 @@ _PROGRAMS: dict = {}
 _MAX_PROGRAMS = 32
 
 
+def _counts() -> dict:
+    """The launch counters that a replay adds its graph's launches to and
+    that a capture leaves as it found them: the solve kernel's
+    (`ops.ilqr.SOLVE_LAUNCHES` as "solve", and by placement
+    `ops.ilqr.PLACEMENT_LAUNCHES`) and the tail kernel's
+    (`ops.cycle_tail.TAIL_LAUNCHES` as "tail")."""
+    return {"solve": ilqr.SOLVE_LAUNCHES, "tail": cycle_tail.TAIL_LAUNCHES, **ilqr.PLACEMENT_LAUNCHES}
+
+
+def _set_counts(counts: dict):
+    """Sets the counters that `_counts` reads."""
+    ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES = counts["solve"], counts["tail"]
+    ilqr.PLACEMENT_LAUNCHES.update((k, counts[k]) for k in ilqr.PLACEMENT_LAUNCHES)
+
+
 class _Program:
     """`cycles` control cycles of one loop over fixed tensors: the carry
     (x, us_warm, lam_warm, u_prev), read at the start and written back in
@@ -170,8 +185,7 @@ class _Program:
         self.carry = (new(NX), new(N, NU), new(N + 1, n_con(model)), new(NU))
         self.outs = SimResult(new(cycles, NX), new(cycles, NU), new(cycles), new(cycles), new(cycles))
         self.graph = None
-        self.launches = 0  # solve launches one replay runs
-        self.tail_launches = 0  # tail launches one replay runs
+        self.counts = dict.fromkeys(_counts(), 0)  # the launches one replay runs, as `_counts` reads them
         self.pool_bytes = 0  # the bytes the capture's pool reserved
 
     def body(self):
@@ -188,14 +202,13 @@ class _Program:
         one warm-up cycle on a side stream (the kernel library's build and
         module load, lazy handles; its result is dropped and the carry left
         as it was), then the body once under `torch.cuda.graph`.  The solves
-        of both count in `CAPTURE_LAUNCHES`, not in `ops.ilqr.SOLVE_LAUNCHES`,
-        and their tails not in `ops.cycle_tail.TAIL_LAUNCHES`.
+        of both count in `CAPTURE_LAUNCHES`, and in none of `_counts`.
         A host span, `runner.capture` (attribute `pool_bytes`), with the
         children `.warmup`, `.record` (the body under capture) and
         `.instantiate` (ending the capture).  A failure raises."""
         global GRAPH_CAPTURES, CAPTURE_LAUNCHES
         device = self.carry[0].device
-        before, tails_before = ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES
+        before = _counts()
         try:
             with profiling.span("runner.capture") as attrs, torch.cuda.device(device):
                 with profiling.span("runner.capture.warmup"):
@@ -210,19 +223,17 @@ class _Program:
                     with torch.cuda.graph(graph):
                         with profiling.span("runner.capture.record"):
                             reserved = torch.cuda.memory_reserved(device)
-                            recorded, tails = ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES
+                            recorded = _counts()
                             self.body()
-                            self.launches = ilqr.SOLVE_LAUNCHES - recorded
-                            self.tail_launches = cycle_tail.TAIL_LAUNCHES - tails
+                            self.counts = {k: v - recorded[k] for k, v in _counts().items()}
                         # closed by `ending` once the graph's context has ended the capture
                         ending.enter_context(profiling.span("runner.capture.instantiate"))
                 self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
                 if attrs is not None:
                     attrs["pool_bytes"] = self.pool_bytes
         finally:
-            CAPTURE_LAUNCHES += ilqr.SOLVE_LAUNCHES - before
-            ilqr.SOLVE_LAUNCHES = before
-            cycle_tail.TAIL_LAUNCHES = tails_before
+            CAPTURE_LAUNCHES += ilqr.SOLVE_LAUNCHES - before["solve"]
+            _set_counts(before)
         self.graph = graph
         GRAPH_CAPTURES += 1
 
@@ -231,8 +242,7 @@ class _Program:
             self.body()
         else:
             self.graph.replay()
-            ilqr.SOLVE_LAUNCHES += self.launches
-            cycle_tail.TAIL_LAUNCHES += self.tail_launches
+            _set_counts({k: v + self.counts[k] for k, v in _counts().items()})
 
 
 def _program_key(model, p, cfg, x0, cycles: int) -> tuple:

@@ -67,6 +67,9 @@ NS = len(SCAL_FIELDS)
 
 #: Launches of the solve kernel so far; a run resets it to count its own.
 SOLVE_LAUNCHES = 0
+#: The same launches by placement (`Placement.name`): the table in shared
+#: memory, in global memory, or everything in the workspace.
+PLACEMENT_LAUNCHES = {"shared": 0, "global": 0, "workspace": 0}
 #: OCPs (warps) per block of the solve kernel: they share one copy of the
 #: lookup table.  A launch of B OCPs takes min(WARPS, B), and fewer where
 #: shared memory does not hold that many slices (long tables or horizons)
@@ -276,6 +279,8 @@ def build():
         lib.lto_ilqr_solve_smem_bytes.restype = ctypes.c_longlong
         lib.lto_ilqr_solve_workspace_elems.argtypes = [ctypes.c_int] * 4
         lib.lto_ilqr_solve_workspace_elems.restype = ctypes.c_longlong
+        lib.lto_ilqr_solve_blocks_per_sm.argtypes = [ctypes.c_int] * 8
+        lib.lto_ilqr_solve_blocks_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -336,6 +341,12 @@ class Placement(NamedTuple):
     global_table: bool
     workspace: bool
 
+    @property
+    def name(self) -> str:
+        """Where the table lives, "shared" or "global", or "workspace" for
+        the workspace placement."""
+        return "workspace" if self.workspace else "global" if self.global_table else "shared"
+
 
 def placement(dtype, warps: int, N: int, L: int, n_con: int, n: int,
               force_global: bool = False, force_workspace: bool = False) -> Placement:
@@ -358,6 +369,18 @@ def placement(dtype, warps: int, N: int, L: int, n_con: int, n: int,
                      "block: an OCP's slice would pass its 32-bit indices")
 
 
+def blocks_per_sm(dtype, where: Placement, N: int, L: int, n_con: int, n: int) -> int:
+    """Blocks of `where.warps` OCPs in placement `where` that one SM of the
+    current card holds at once, at the launch's dynamic shared memory
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    rc = build().lto_ilqr_solve_blocks_per_sm(torch.empty((), dtype=dtype).element_size(), where.warps, N, L,
+                                              n_con, n, int(where.global_table), int(where.workspace))
+    if rc < 0:
+        raise RuntimeError(f"the solve kernel's occupancy for {where} N={N} L={L} n_con={n_con} n={n}: "
+                           f"cudaError_t {-rc}")
+    return rc
+
+
 def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
             force_global: bool = False, force_workspace: bool = False):
     """Check, allocate the outputs (and the workspace where the placement
@@ -365,7 +388,7 @@ def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
     OCPs per block (default min(WARPS, B); fewer where shared memory does
     not hold them) in the placement `placement` picks (`force_global`,
     `force_workspace`: the table, or everything, in global memory whatever
-    the sizes), and count the launch."""
+    the sizes), and count the launch, and by its placement."""
     global SOLVE_LAUNCHES
     lead = _check_solve(cfg, z0, us_init, lam_init, pk)
     B = lead[0] if lead else 1
@@ -397,6 +420,7 @@ def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
     if rc != 0:
         raise RuntimeError(f"solve kernel launch failed: cudaError_t {rc}")
     SOLVE_LAUNCHES += 1
+    PLACEMENT_LAUNCHES[where.name] += 1
     return outs
 
 

@@ -310,4 +310,4 @@ def test_cuda_tail_launches_count_the_cycles(track, monkeypatch, loop):
     getattr(runner, loop)(model, p, SolverConfig(horizon=10), x0, steps)
     torch.cuda.synchronize()
     assert cycle_tail.TAIL_LAUNCHES == steps
-    assert all(prog.graph is not None and prog.tail_launches == prog.cycles for prog in runner._PROGRAMS.values())
+    assert all(prog.graph is not None and prog.counts["tail"] == prog.cycles for prog in runner._PROGRAMS.values())

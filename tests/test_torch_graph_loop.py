@@ -305,7 +305,7 @@ def test_cuda_captures_once_per_key_and_cycles(track, fresh):
         assert runner.GRAPH_CAPTURES == expected[i], change
         assert ilqr.SOLVE_LAUNCHES == steps + 2, change
     assert runner.CAPTURE_LAUNCHES == 3 * (G + 1 + 7 + 1)  # per capture: a warm-up cycle and the body
-    assert sorted(prog.launches for prog in runner._PROGRAMS.values()) == [7, 7, 7, G, G, G]
+    assert sorted(prog.counts["solve"] for prog in runner._PROGRAMS.values()) == [7, 7, 7, G, G, G]
 
 
 @pytest.mark.cuda

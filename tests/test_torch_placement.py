@@ -1,0 +1,144 @@
+"""The solve kernel's launches counted by placement
+(`ops.ilqr.PLACEMENT_LAUNCHES`: the table in shared memory, in global
+memory, or everything in the workspace), beside `SOLVE_LAUNCHES`, and
+carried through the graphed loops by `runner._counts` / `_set_counts`.
+
+On the CPU (no JAX; a few seconds): each placement's name; a loop on the
+CPU launches nothing, so no counter moves; a replay adds the launches its
+graph recorded to every counter at once.
+
+On the card (`cuda`): a B = 32 `closed_loop_batch` at h10 f32 counts its
+solve launches by placement, all "global" on the benchmark's full-length
+circuit (`mx5_circuit20832_h10_f32`: 20,831 samples, past the 13,468 that
+a block's shared memory holds beside one OCP's slice) and all "shared" on
+buckmore's 846 (`mx5_h10_f32`), as many as `SOLVE_LAUNCHES` moved, and the
+device trace shows the same instantiation of `ilqr_solve_kernel` for each.
+"""
+
+import json
+import os
+import sys
+import types
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel  # noqa: E402
+from lap_time_optimization_tpu_torch.models.vehicle import PacejkaVehicle  # noqa: E402
+from lap_time_optimization_tpu_torch.mpc import runner  # noqa: E402
+from lap_time_optimization_tpu_torch.mpc import track as mpc_track  # noqa: E402
+from lap_time_optimization_tpu_torch.mpc.solver import OCPParams, SolverConfig  # noqa: E402
+from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr  # noqa: E402
+from perfbench import trace, traffic  # noqa: E402
+from perfbench.reference import track as ref_track  # noqa: E402
+
+#: The longest (4, n) float32 table that fits a block's shared memory beside
+#: one h10 OCP slice (csrc/ilqr.cu's solve_smem_bytes at W = 1, 6 rungs, 14
+#: rows); past it the table stays in global memory.
+SHARED_TABLE_MAX = 13468
+
+
+def load(*parts):
+    with open(os.path.join(ROOT, *parts)) as fh:
+        return json.load(fh)
+
+
+def model_of(conf, device="cpu", dtype=torch.float64):
+    art = conf["artifacts"]
+    track = mpc_track.load(art["vehicle"], art["track"], art["method"], base_dir=os.path.join(ROOT, art["base_dir"]))
+    veh = PacejkaVehicle(name=conf["vehicle"]["name"], **{k: v for k, v in conf["vehicle"].items() if k != "name"})
+    return (BicycleModel(veh, track).to(device, dtype), OCPParams(**conf["ocp"]).to(device, dtype),
+            SolverConfig(**conf["solver"]))
+
+
+def reference_tables(track):
+    """The port's tables as the benchmark reference's `Tables` (for the
+    traffic's start states)."""
+    host = lambda t: t.detach().cpu().numpy().astype(np.float64)
+    return ref_track.Tables(host(track.k_vals), host(track.nl_vals), host(track.nr_vals), host(track.vref_vals),
+                            float(track.s_max))
+
+
+@pytest.fixture
+def counters(monkeypatch):
+    """Fresh counters, so that a test neither reads nor leaves others'."""
+    monkeypatch.setattr(ilqr, "SOLVE_LAUNCHES", 0)
+    monkeypatch.setattr(ilqr, "PLACEMENT_LAUNCHES", dict.fromkeys(ilqr.PLACEMENT_LAUNCHES, 0))
+    monkeypatch.setattr(cycle_tail, "TAIL_LAUNCHES", 0)
+
+
+@pytest.mark.parametrize("where, name", [
+    (ilqr.Placement(4, False, False), "shared"),
+    (ilqr.Placement(4, True, False), "global"),
+    (ilqr.Placement(4, True, True), "workspace"),
+])
+def test_placement_names(where, name):
+    assert where.name == name
+    assert name in ilqr.PLACEMENT_LAUNCHES
+
+
+def test_a_loop_on_the_cpu_counts_no_launch(counters):
+    model, p, cfg = model_of(load("perfbench", "configs", "mx5_h10_f32.json"))
+    x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float64).repeat(2, 1)
+    res = runner.closed_loop_batch(model, p, cfg, x0, 2)
+    assert bool(torch.isfinite(res.xs).all())
+    assert runner._counts() == {"solve": 0, "tail": 0, **dict.fromkeys(ilqr.PLACEMENT_LAUNCHES, 0)}
+
+
+def test_a_replay_adds_its_graphs_launches_to_every_counter(counters):
+    ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES, ilqr.PLACEMENT_LAUNCHES["shared"] = 2, 1, 2
+    prog = runner._Program.__new__(runner._Program)
+    prog.graph = types.SimpleNamespace(replay=lambda: None)
+    prog.counts = {**dict.fromkeys(runner._counts(), 0), "solve": 10, "tail": 10, "global": 10}
+    prog.run()
+    prog.run()
+    assert runner._counts() == {"solve": 22, "tail": 21, "shared": 2, "global": 20, "workspace": 0}
+
+
+# ----------------------------------------------------------------- the card
+def kernel_launches(prof) -> Counter:
+    """Device launches of each solve-kernel instantiation in a profile, by
+    its template arguments as the trace names them."""
+    device, _ = trace.read_events(prof)
+    return Counter(name.split("ilqr_solve_kernel<", 1)[1].split(">", 1)[0]
+                   for name, _, _ in device if "ilqr_solve_kernel<" in name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config, traffic_mix, placement, instantiation", [
+    ("mx5_circuit20832_h10_f32", "fleet4096_lap", "global", "float, true, false"),
+    ("mx5_h10_f32", "fleet4096", "shared", "float, false, false"),
+])
+def test_cuda_fleet_counts_its_placement(config, traffic_mix, placement, instantiation):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from torch.profiler import ProfilerActivity, profile
+
+    conf = load("perfbench", "configs", f"{config}.json")
+    model, p, cfg = model_of(conf, "cuda", torch.float32)
+    n = model.track.k_vals.shape[0]
+    assert (n > SHARED_TABLE_MAX) == (placement == "global")
+    assert ilqr.smem_bytes(torch.float32, 1, 10, 6, 14, SHARED_TABLE_MAX) > 0
+    assert ilqr.smem_bytes(torch.float32, 1, 10, 6, 14, SHARED_TABLE_MAX + 1) == 0
+    tr = {**load("perfbench", "traffic", f"{traffic_mix}.json"), "batch": 32}
+    x0 = traffic.initial_states(tr, conf["x0"], reference_tables(model.track), 0.5 * conf["vehicle"]["width"], 7, 0)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device="cuda")
+    runner.closed_loop_batch(model, p, cfg, x0, runner.GRAPH_CYCLES)  # captures the program
+    torch.cuda.synchronize()
+    solves, placed = ilqr.SOLVE_LAUNCHES, dict(ilqr.PLACEMENT_LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = runner.closed_loop_batch(model, p, cfg, x0, 2 * runner.GRAPH_CYCLES)
+        torch.cuda.synchronize()
+    solves = ilqr.SOLVE_LAUNCHES - solves
+    moved = {k: v - placed[k] for k, v in ilqr.PLACEMENT_LAUNCHES.items()}
+    print(f"n={n}: solve launches {solves}, by placement {moved}, in the trace {dict(kernel_launches(prof))}")
+    assert bool(torch.isfinite(res.xs).all())
+    assert solves == 2 * runner.GRAPH_CYCLES + 2  # the presolve's two, then one a cycle
+    assert moved == {**dict.fromkeys(moved, 0), placement: solves}
+    assert kernel_launches(prof) == Counter({instantiation: solves})
