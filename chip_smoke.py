@@ -107,13 +107,16 @@ Phases:
    each against the twin on the CPU; (f) `--curvature --solver fused`
    through the CLI on the 20 km circuit, its lap against the scan oracle's
    on the same line; (g) the solve kernel at the fleet's B = 4096 (h10
-   f32) on buckmore with its table in shared memory, the same launch with
-   the table forced into global memory (bit-equal), and on the benchmark's
-   full-length circuit (20,831 samples; `tools/make_circuit.py`), which
-   takes the global placement: blocks per SM
-   (`ops.ilqr.blocks_per_sm`), launches by placement
-   (`ops.ilqr.PLACEMENT_LAUNCHES`) and the time per launch (CUDA events),
-   so that the placement is told apart from the table's length;
+   f32) on buckmore with its table in shared memory and in global memory
+   (`_launch`'s `where`; bit-equal), in the placement the wrapper picks
+   (the global one, 3 blocks per SM against 2, counted in
+   `ops.ilqr.OCCUPANCY_MOVES`), and on the benchmark's full-length circuit
+   (20,831 samples; `tools/make_circuit.py`), which takes the global
+   placement: blocks per SM (`ops.ilqr.blocks_per_sm`), launches by
+   placement (`ops.ilqr.PLACEMENT_LAUNCHES`) and the time per launch (CUDA
+   events), so that the placement is told apart from the table's length;
+   then the placement rule across B = 32 to 8192 at h10 f32 and h20 f64:
+   the wrapper's pick and both placements' waves and times;
 11. kernel 3 vs its twin on 1024 real candidate geometries (closed,
    B=1024, N=846; open, the first 300 samples; ragged B=160), on the
    sector windows of phase 8 (open, B = sectors × 8, N = the windows'
@@ -313,8 +316,11 @@ ACCURATE_F32_COST_TOL = 1e-2
 # on the card would take ~50 s at N = 20,831; on the CPU it takes numpy's
 # correctly rounded sqrt, as the card's is, so the kernel's bits are its).
 LONG_NS, SPA_NS = 20832, 7004
-# Phase 10 (g): the fleet's B.
+# Phase 10 (g): the fleet's B, and the batch sizes of the placement sweep
+# (264 and 396: the H100's 132 SMs times the shared and the global
+# placement's blocks per SM at h10 f32).
 FLEET_B = 4096
+PLACEMENT_SWEEP = (32, 264, 396, 1024, 2048, 4096, 8192)
 LONG_STEPS, LONG_FLEET_STEPS = 100, 20
 LONG_ROWS = 32
 # bench.py's fleet on the long table: the JAX package's own controller (XLA,
@@ -1133,7 +1139,8 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
         n = pk.tables.shape[-1]
         for name, x0, seed in (("B=1", runner.X0_REFERENCE, 1), (f"B={BATCH}", fleet_states(model.track, BATCH), 3)):
             sargs = solve_inputs(model, cfg, x0, 2.0, seed)
-            where = ilqr.placement(dtype, min(ilqr.WARPS, 1 if x0.ndim == 1 else BATCH), cfg.horizon, L, 14, n)
+            B = 1 if x0.ndim == 1 else BATCH
+            where = ilqr.placement(dtype, min(ilqr.WARPS, B), cfg.horizon, L, 14, n, B=B)
             shared = ilqr._launch(cfg, *sargs, pk)
             forced = ilqr._launch(cfg, *sargs, pk, force_global=True)
             same = all(torch.equal(a, b) for a, b in zip(forced, shared))
@@ -1354,12 +1361,15 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
 def fleet_placements(device, cfg, out, reps: int = 10) -> int:
     """Phase 10 (g): the solve kernel at h10 f32 and B = FLEET_B, from
     `fleet_states` (starts over the whole lap, 4-12 m/s), on buckmore in the
-    shared placement, on buckmore with the table forced into global memory
-    (bit-equal to the shared launch), and on the benchmark's full-length
-    circuit (`data/plots/MX-5/circuit20832/curvature`, 20,831 samples),
-    whose table takes the global placement: each case's placement, blocks
-    per SM, launches by placement and ms per launch (CUDA events over
-    `reps` launches after one) into `out`.  Returns the solve launches."""
+    shared and in the global placement (given through `_launch`'s `where`;
+    bit-equal), in the placement the wrapper picks there (the global one:
+    3 blocks per SM against the shared placement's 2, so 3 waves against 4,
+    each launch counted in `OCCUPANCY_MOVES`; bit-equal), and on the
+    benchmark's full-length circuit (`data/plots/MX-5/circuit20832/curvature`,
+    20,831 samples), whose table takes the global placement: each case's
+    placement, blocks per SM, launches by placement and ms per launch (CUDA
+    events over `reps` launches after one) into `out`; then
+    `placement_sweep`.  Returns the solve launches."""
     from lap_time_optimization_tpu_torch.models import load_vehicle
     from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
     from lap_time_optimization_tpu_torch.mpc import track as mpc_track
@@ -1369,32 +1379,80 @@ def fleet_placements(device, cfg, out, reps: int = 10) -> int:
     dtype, N, L = torch.float32, cfg.horizon, cfg.n_linesearch
     circuit = mpc_track.load("MX-5", "circuit20832", "curvature", base_dir=os.path.join(ROOT, "data"))
     buckmore = load_main_path(device, dtype)
-    cases = (("buckmore shared", buckmore, False, "shared"), ("buckmore forced global", buckmore, True, "global"),
+    shared, global_table = ilqr.Placement(ilqr.WARPS, False, False), ilqr.Placement(ilqr.WARPS, True, False)
+    # (label, model and OCP parameters, the placement given or None, the placement expected, its blocks per
+    # SM or None, the launches expected in OCCUPANCY_MOVES per launch)
+    cases = (("buckmore shared", buckmore, shared, "shared", None, 0),
+             ("buckmore global", buckmore, global_table, "global", None, 0),
+             ("buckmore, the wrapper's placement", buckmore, None, "global", 3, 1),
              ("circuit20832", (BicycleModel(load_vehicle("MX5"), circuit).to(device, dtype),
-                               OCPParams.reference(dtype, device, lateral_margin=0.05)), False, "global"))
+                               OCPParams.reference(dtype, device, lateral_margin=0.05)), None, "global", None, 0))
     launches, shared_out = 0, None
-    for label, (model, p), force, expect in cases:
+    for label, (model, p), given, expect, expect_blocks, moves_each in cases:
         pk = ilqr.pack(model, p, cfg)
         n = pk.tables.shape[-1]
         sargs = solve_inputs(model, cfg, fleet_states(model.track, FLEET_B), 2.0, 3)
-        where = ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, force_global=force)
+        where = given or ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, B=FLEET_B, device=device)
         blocks = ilqr.blocks_per_sm(dtype, where, N, L, 14, n)
         smem = ilqr.smem_bytes(dtype, where.warps, N, L, 14, n, where.global_table)
-        placed = dict(ilqr.PLACEMENT_LAUNCHES)
-        got = ilqr._launch(cfg, *sargs, pk, force_global=force)
-        ms = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, force_global=force), reps)
+        placed, moves = dict(ilqr.PLACEMENT_LAUNCHES), ilqr.OCCUPANCY_MOVES
+        got = ilqr._launch(cfg, *sargs, pk, where=given)
+        ms = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, where=given), reps)
         moved = {k: v - placed[k] for k, v in ilqr.PLACEMENT_LAUNCHES.items()}
+        moves = ilqr.OCCUPANCY_MOVES - moves
         launches += reps + 2
         shared_out = shared_out or got
-        equal = not force or all(torch.equal(a, b) for a, b in zip(got, shared_out))
+        equal = model is not buckmore[0] or all(torch.equal(a, b) for a, b in zip(got, shared_out))
         print(f"solve kernel h10 f32 B={FLEET_B} {label}: n={n}, placement {where.name} ({where.warps} OCPs a "
               f"block, {smem} B of shared memory a block), {blocks} blocks per SM ({blocks * where.warps} warps); "
-              f"launches by placement {moved}; {ms:.4f} ms per launch (CUDA events, {reps})"
-              + (f"; bit-equal to the shared launch {equal}" if force else ""))
-        if where.name != expect or moved != {**dict.fromkeys(moved, 0), expect: reps + 2} or not equal:
-            raise AssertionError(f"{label}: placement {where.name}, launches {moved}, bit-equal to the shared "
-                                 f"launch {equal}; expected {expect}")
+              f"launches by placement {moved}, in OCCUPANCY_MOVES {moves}; {ms:.4f} ms per launch (CUDA events, "
+              f"{reps})" + (f"; bit-equal to the shared launch {equal}" if model is buckmore[0] else ""))
+        if (where.name != expect or moved != {**dict.fromkeys(moved, 0), expect: reps + 2} or not equal
+                or moves != moves_each * (reps + 2) or expect_blocks not in (None, blocks)):
+            raise AssertionError(f"{label}: placement {where.name} at {blocks} blocks per SM, launches {moved}, "
+                                 f"in OCCUPANCY_MOVES {moves}, bit-equal to the shared launch {equal}; expected "
+                                 f"{expect}")
         out[f"fleet_{label}"] = {"placement": where.name, "blocks_per_sm": blocks, "smem_bytes": smem, "ms": ms}
+    return launches + placement_sweep(device, out)
+
+
+def placement_sweep(device, out, reps: int = 5) -> int:
+    """Phase 10 (g), the placement rule across B: for h10 f32 and h20 f64 on
+    buckmore, at each B of PLACEMENT_SWEEP (from `fleet_states`), the
+    placement the wrapper picks, each candidate's blocks per SM and waves,
+    and its ms per launch (CUDA events over `reps` launches after one),
+    given through `_launch`'s `where`, the candidates bit-equal; printed,
+    with the pick's time over the faster candidate's, and into `out`.
+    Returns the solve launches."""
+    from lap_time_optimization_tpu_torch.mpc.solver import SolverConfig
+    from lap_time_optimization_tpu_torch.ops import ilqr
+
+    launches = 0
+    for label, dtype, cfg in (("h10 f32", torch.float32, SolverConfig(horizon=10)),
+                              ("h20 f64", torch.float64, SolverConfig.for_horizon(20))):
+        model, p = load_main_path(device, dtype)
+        pk = ilqr.pack(model, p, cfg)
+        N, L, n = cfg.horizon, cfg.n_linesearch, pk.tables.shape[-1]
+        candidates = (ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, device=device),
+                      ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, force_global=True, device=device))
+        if candidates[0].name != "shared":
+            raise AssertionError(f"{label}: the table does not fit shared memory ({candidates[0]})")
+        for B in PLACEMENT_SWEEP:
+            sargs = solve_inputs(model, cfg, fleet_states(model.track, B), 2.0, 3)
+            pick = ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, B=B, device=device)
+            outs = [ilqr._launch(cfg, *sargs, pk, where=w) for w in candidates]
+            same = all(torch.equal(a, b) for a, b in zip(*outs))
+            ms = {w.name: cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, where=w), reps) for w in candidates}
+            resident = {w.name: ilqr.occupancy(dtype, w, N, L, 14, n, device) for w in candidates}
+            waves = {w.name: ilqr.waves(B, w.warps, *resident[w.name]) for w in candidates}
+            launches += 2 * (reps + 2)
+            print(f"placement sweep {label} B={B}: the wrapper picks {pick.name}; "
+                  + "; ".join(f"{w.name} ({w.warps} OCPs a block, {resident[w.name][1]} blocks per SM, "
+                              f"{waves[w.name]} waves) {ms[w.name]:.4f} ms" for w in candidates)
+                  + f"; the pick over the faster {ms[pick.name] / min(ms.values()):.4f}; bit-equal {same}")
+            if pick not in candidates or not same:
+                raise AssertionError(f"{label} B={B}: pick {pick}, candidates bit-equal {same}")
+            out[f"sweep {label} B={B}"] = {"pick": pick.name, "ms": ms, "waves": waves}
     return launches
 
 
@@ -1493,7 +1551,7 @@ def phase_long_horizons(device):
         pk = ilqr.pack(model, p, h10)
         for B in (1, BATCH):
             sargs = solve_inputs(model, h10, cases(model, B), 2.0, 1 if B == 1 else 3)
-            where = ilqr.placement(dtype, min(ilqr.WARPS, B), 10, h10.n_linesearch, 14, pk.tables.shape[-1])
+            where = ilqr.placement(dtype, min(ilqr.WARPS, B), 10, h10.n_linesearch, 14, pk.tables.shape[-1], B=B)
             shared = ilqr._launch(h10, *sargs, pk)
             same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(h10, *sargs, pk, force_workspace=True), shared))
             print(f"solve kernel {dt(dtype)} B={B} h10: the wrapper's placement {tuple(where)}; the workspace "
@@ -1518,16 +1576,16 @@ def phase_long_horizons(device):
             own = ilqr.solve(model, p, cfg, *sargs, pk)
             same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(cfg, *sargs, pk, force_workspace=True), own))
             print(f"N={top}, the last horizon whose slice fits a block in {dt(dtype)} (6 rungs, 14 rows), B={B}: the "
-                  f"wrapper's placement {tuple(ilqr.placement(dtype, min(ilqr.WARPS, B), top, 6, 14, n))}; the "
+                  f"wrapper's placement {tuple(ilqr.placement(dtype, min(ilqr.WARPS, B), top, 6, 14, n, B=B))}; the "
                   f"workspace forced: bit-equal {same}; N={top + 1} takes "
-                  f"{tuple(ilqr.placement(dtype, min(ilqr.WARPS, B), top + 1, 6, 14, n))}")
+                  f"{tuple(ilqr.placement(dtype, min(ilqr.WARPS, B), top + 1, 6, 14, n, B=B))}")
             if not same or ilqr.placement(dtype, 1, top, 6, 14, n).workspace:
                 raise AssertionError(f"the workspace at N={top} {dt(dtype)} B={B} differs from the shared slice")
         for N in horizons:
             cfg = SolverConfig.for_horizon(N)
             pk = ilqr.pack(model, p, cfg)
             for B in (1, BATCH):
-                where = ilqr.placement(dtype, min(ilqr.WARPS, B), N, 6, 14, n)
+                where = ilqr.placement(dtype, min(ilqr.WARPS, B), N, 6, 14, n, B=B)
                 if not where.workspace:
                     raise AssertionError(f"N={N} {dt(dtype)} took placement {where}")
                 held = check_long_solve(f"solve kernel vs plain {dt(dtype)} N={N} B={B} (placement {tuple(where)})",
@@ -1611,7 +1669,7 @@ def phase_long_horizons(device):
         ms = cuda_ms(lambda: ilqr.solve(model, p, cfg, *sargs, pk), 5 if cfg.horizon > 40 or B > BATCH else 20)
         bound = bound_ms(nbytes(*sargs, *pk, *outs), B * solve_flops(cfg),
                          F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S)
-        where = ilqr.placement(dtype, min(ilqr.WARPS, B), cfg.horizon, cfg.n_linesearch, 14, pk.tables.shape[-1])
+        where = ilqr.placement(dtype, min(ilqr.WARPS, B), cfg.horizon, cfg.n_linesearch, 14, pk.tables.shape[-1], B=B)
         timed.append((label, ms, bound))
         print(f"solve kernel per call {label} B={B} (N={cfg.horizon} L={cfg.n_linesearch} substeps={cfg.substeps} "
               f"{cfg.al_iters}x{cfg.ilqr_iters} iterations, placement {tuple(where)}): {ms:.4f} ms; "

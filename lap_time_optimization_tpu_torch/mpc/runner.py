@@ -153,15 +153,18 @@ _MAX_PROGRAMS = 32
 def _counts() -> dict:
     """The launch counters that a replay adds its graph's launches to and
     that a capture leaves as it found them: the solve kernel's
-    (`ops.ilqr.SOLVE_LAUNCHES` as "solve", and by placement
-    `ops.ilqr.PLACEMENT_LAUNCHES`) and the tail kernel's
-    (`ops.cycle_tail.TAIL_LAUNCHES` as "tail")."""
-    return {"solve": ilqr.SOLVE_LAUNCHES, "tail": cycle_tail.TAIL_LAUNCHES, **ilqr.PLACEMENT_LAUNCHES}
+    (`ops.ilqr.SOLVE_LAUNCHES` as "solve", by placement
+    `ops.ilqr.PLACEMENT_LAUNCHES`, and `ops.ilqr.OCCUPANCY_MOVES` as
+    "occupancy_moves") and the tail kernel's (`ops.cycle_tail.TAIL_LAUNCHES`
+    as "tail")."""
+    return {"solve": ilqr.SOLVE_LAUNCHES, "tail": cycle_tail.TAIL_LAUNCHES,
+            "occupancy_moves": ilqr.OCCUPANCY_MOVES, **ilqr.PLACEMENT_LAUNCHES}
 
 
 def _set_counts(counts: dict):
     """Sets the counters that `_counts` reads."""
     ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES = counts["solve"], counts["tail"]
+    ilqr.OCCUPANCY_MOVES = counts["occupancy_moves"]
     ilqr.PLACEMENT_LAUNCHES.update((k, counts[k]) for k in ilqr.PLACEMENT_LAUNCHES)
 
 

@@ -15,9 +15,11 @@ with its own Levenberg reg), and of the eager code around them in
   it fits beside the OCPs' slices, and else in global memory; past what a
   block holds (one OCP's slice: horizon 160 in float32 and 79 in float64 at
   6 rungs) the scalars and the slices move, in the same layout, to a
-  workspace in global memory that the wrapper allocates (`placement`).  The
-  same arithmetic runs in every placement, so they give the same bits, and
-  any table length, horizon and ladder runs.  It raises if the kernel
+  workspace in global memory that the wrapper allocates (`placement`).
+  Where both placements in shared memory hold the launch, the one whose
+  blocks fill the card's SMs in fewer waves runs it.  The same arithmetic
+  runs in every placement, so they give the same bits, and any table
+  length, horizon and ladder runs.  It raises if the kernel
   cannot be built or launched or the workspace cannot be allocated; there
   is no fallback.  CPU tensors go to the plain version, `solve_reference`.
 * `solve_reference` — the same solve in plain PyTorch: `mpc/solver.py`'s
@@ -70,6 +72,9 @@ SOLVE_LAUNCHES = 0
 #: The same launches by placement (`Placement.name`): the table in shared
 #: memory, in global memory, or everything in the workspace.
 PLACEMENT_LAUNCHES = {"shared": 0, "global": 0, "workspace": 0}
+#: Of the "global" ones, the launches whose table fit in shared memory but
+#: which `placement` put in global memory, as it runs them in fewer waves.
+OCCUPANCY_MOVES = 0
 #: OCPs (warps) per block of the solve kernel: they share one copy of the
 #: lookup table.  A launch of B OCPs takes min(WARPS, B), and fewer where
 #: shared memory does not hold that many slices (long tables or horizons)
@@ -79,6 +84,8 @@ MAX_WARPS = 4
 
 _ENTRY = {torch.float32: "lto_ilqr_solve_f32", torch.float64: "lto_ilqr_solve_f64"}
 _lib = None
+#: `occupancy` by (device index, dtype, placement, N, L, n_con, n).
+_OCCUPANCY: dict = {}
 
 
 # ------------------------------------------------------------------ packing
@@ -348,21 +355,59 @@ class Placement(NamedTuple):
         return "workspace" if self.workspace else "global" if self.global_table else "shared"
 
 
+def waves(B: int, warps: int, sms: int, blocks: int) -> int:
+    """Waves of a launch of B OCPs, `warps` a block, on `sms` SMs that hold
+    `blocks` blocks each at once: ⌈⌈B / warps⌉ / (sms · blocks)⌉."""
+    grid = -(-B // warps)
+    return -(-grid // (sms * blocks))
+
+
+def fewest_waves(B: int, candidates) -> Placement:
+    """Of `candidates`, (placement, SMs, blocks per SM) in order of
+    preference, the first that runs a launch of B OCPs in the fewest
+    waves."""
+    return min(candidates, key=lambda c: waves(B, c[0].warps, c[1], c[2]))[0]
+
+
+def occupancy(dtype, where: Placement, N: int, L: int, n_con: int, n: int, device=None) -> tuple[int, int]:
+    """(SMs, blocks per SM) of placement `where` on `device` (default: the
+    current card): the card's SM count and `blocks_per_sm`, queried once
+    per (device, dtype, placement, N, L, n_con, n)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    key = (index, dtype, where, N, L, n_con, n)
+    if key not in _OCCUPANCY:
+        with torch.cuda.device(index):
+            _OCCUPANCY[key] = (torch.cuda.get_device_properties(index).multi_processor_count,
+                               blocks_per_sm(dtype, where, N, L, n_con, n))
+    return _OCCUPANCY[key]
+
+
 def placement(dtype, warps: int, N: int, L: int, n_con: int, n: int,
-              force_global: bool = False, force_workspace: bool = False) -> Placement:
-    """The first that holds at least one OCP per block, with the most OCPs
-    per block up to `warps`: the table and the slices in shared memory; the
-    table in global memory and the slices in shared memory; the workspace
-    (table, scalars and slices in global memory, `warps` OCPs per block).
-    `force_global` skips the first, `force_workspace` the first two.
-    Raises where the kernel takes none: an OCP's slice past its 32-bit
-    indices."""
+              force_global: bool = False, force_workspace: bool = False, B: int = 1,
+              device=None) -> Placement:
+    """Where a launch of B OCPs runs on `device` (default: the current
+    card).  The candidates hold at least one OCP per block, with the most
+    OCPs per block up to `warps`: the table and the slices in shared
+    memory; the table in global memory and the slices in shared memory.
+    Of those that fit, the one that runs the launch in the fewest waves
+    (`fewest_waves`, from `occupancy`), the first where they tie: at B = 1
+    and wherever the blocks fit the card at once, the shared one.  Where
+    neither fits, the workspace (table, scalars and slices in global
+    memory, `warps` OCPs per block).  `force_global` skips the first,
+    `force_workspace` the first two.  Raises where the kernel takes none:
+    an OCP's slice past its 32-bit indices."""
+    fits = []
     if not force_workspace:
         for global_table in ((True,) if force_global else (False, True)):
             W = next((w for w in range(warps, 0, -1)
                       if smem_bytes(dtype, w, N, L, n_con, n, global_table)), 0)
             if W:
-                return Placement(W, global_table, False)
+                fits.append(Placement(W, global_table, False))
+    if len(fits) > 1:
+        return fewest_waves(B, [(where, *occupancy(dtype, where, N, L, n_con, n, device)) for where in fits])
+    if fits:
+        return fits[0]
     if workspace_elems(warps, N, L, n_con):
         return Placement(warps, True, True)
     raise ValueError(f"the solve kernel does not take N={N} L={L} n_con={n_con} with {warps} OCPs per "
@@ -382,22 +427,27 @@ def blocks_per_sm(dtype, where: Placement, N: int, L: int, n_con: int, n: int) -
 
 
 def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
-            force_global: bool = False, force_workspace: bool = False):
+            force_global: bool = False, force_workspace: bool = False, where: Placement | None = None):
     """Check, allocate the outputs (and the workspace where the placement
     needs one), launch the solve kernel on the current stream with `warps`
     OCPs per block (default min(WARPS, B); fewer where shared memory does
-    not hold them) in the placement `placement` picks (`force_global`,
-    `force_workspace`: the table, or everything, in global memory whatever
-    the sizes), and count the launch, and by its placement."""
-    global SOLVE_LAUNCHES
+    not hold them) in the placement `placement` picks for B OCPs on z0's
+    card (`force_global`, `force_workspace`: the table, or everything, in
+    global memory whatever the sizes), or in `where` as given, and count
+    the launch, by its placement, and in `OCCUPANCY_MOVES` where the rule
+    put a table that fits shared memory in global memory."""
+    global SOLVE_LAUNCHES, OCCUPANCY_MOVES
     lead = _check_solve(cfg, z0, us_init, lam_init, pk)
     B = lead[0] if lead else 1
     N, L, n_con, n = cfg.horizon, cfg.n_linesearch, lam_init.shape[-1], pk.tables.shape[-1]
     lib = build()
-    want = min(WARPS, B) if warps is None else warps
+    want = where.warps if where is not None else min(WARPS, B) if warps is None else warps
     if not 1 <= want <= MAX_WARPS:
         raise ValueError(f"warps={want}: the kernel takes 1 to {MAX_WARPS} OCPs per block")
-    where = placement(z0.dtype, want, N, L, n_con, n, force_global, force_workspace)
+    moved = False
+    if where is None:
+        where = placement(z0.dtype, want, N, L, n_con, n, force_global, force_workspace, B, z0.device)
+        moved = where.name == "global" and not force_global and smem_bytes(z0.dtype, 1, N, L, n_con, n) > 0
     new = lambda *shape: torch.empty(lead + shape, dtype=z0.dtype, device=z0.device)
     outs = (new(N, NU), new(N + 1, NZ), new(N + 1, n_con), new(), new())
     ws_ptr = None
@@ -421,6 +471,7 @@ def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
         raise RuntimeError(f"solve kernel launch failed: cudaError_t {rc}")
     SOLVE_LAUNCHES += 1
     PLACEMENT_LAUNCHES[where.name] += 1
+    OCCUPANCY_MOVES += moved
     return outs
 
 

@@ -1,11 +1,17 @@
-"""The solve kernel's launches counted by placement
-(`ops.ilqr.PLACEMENT_LAUNCHES`: the table in shared memory, in global
-memory, or everything in the workspace), beside `SOLVE_LAUNCHES`, and
-carried through the graphed loops by `runner._counts` / `_set_counts`.
+"""The solve kernel's placement rule (`ops.ilqr.placement`: of the
+placements that fit, the one whose blocks fill the card's SMs in the
+fewest waves at the launch's B, the shared one where they tie) and its
+launches counted by placement (`ops.ilqr.PLACEMENT_LAUNCHES`: the table in
+shared memory, in global memory, or everything in the workspace) and in
+`OCCUPANCY_MOVES`, beside `SOLVE_LAUNCHES`, and carried through the graphed
+loops by `runner._counts` / `_set_counts`.
 
-On the CPU (no JAX; a few seconds): each placement's name; a loop on the
-CPU launches nothing, so no counter moves; a replay adds the launches its
-graph recorded to every counter at once.
+On the CPU (no JAX; a few seconds): the rule as a function of B, the
+OCPs per block, the SM count, each candidate's blocks per SM and which
+candidates fit, with the kernel library's size and occupancy queries
+replaced; each placement's name; a loop on the CPU launches nothing, so no
+counter moves; a replay adds the launches its graph recorded to every
+counter at once.
 
 On the card (`cuda`): a B = 32 `closed_loop_batch` at h10 f32 counts its
 solve launches by placement, all "global" on the benchmark's full-length
@@ -13,6 +19,10 @@ circuit (`mx5_circuit20832_h10_f32`: 20,831 samples, past the 13,468 that
 a block's shared memory holds beside one OCP's slice) and all "shared" on
 buckmore's 846 (`mx5_h10_f32`), as many as `SOLVE_LAUNCHES` moved, and the
 device trace shows the same instantiation of `ilqr_solve_kernel` for each.
+At the benchmark's B = 4096 on buckmore every solve launch is "global" (3
+blocks of 4 OCPs per SM against the shared placement's 2: 3 waves against
+4) and counts in `OCCUPANCY_MOVES`, with the bits of the same launches in
+the shared placement.
 """
 
 import json
@@ -70,7 +80,58 @@ def counters(monkeypatch):
     """Fresh counters, so that a test neither reads nor leaves others'."""
     monkeypatch.setattr(ilqr, "SOLVE_LAUNCHES", 0)
     monkeypatch.setattr(ilqr, "PLACEMENT_LAUNCHES", dict.fromkeys(ilqr.PLACEMENT_LAUNCHES, 0))
+    monkeypatch.setattr(ilqr, "OCCUPANCY_MOVES", 0)
     monkeypatch.setattr(cycle_tail, "TAIL_LAUNCHES", 0)
+
+
+SHARED, GLOBAL = ilqr.Placement(4, False, False), ilqr.Placement(4, True, False)
+
+
+@pytest.mark.parametrize("B, fits, blocks, force, expected", [
+    # buckmore h10 f32: 4 OCPs a block in either, 2 blocks per SM shared, 3 global
+    (1, {"shared": 4, "global": 4}, (2, 3), {}, (1, False, False)),
+    (32, {"shared": 4, "global": 4}, (2, 3), {}, SHARED),
+    (4096, {"shared": 4, "global": 4}, (2, 3), {}, GLOBAL),  # 1024 blocks: 4 waves against 3
+    (2048, {"shared": 4, "global": 4}, (2, 3), {}, SHARED),  # 512 blocks: 2 waves in each
+    (8192, {"shared": 4, "global": 4}, (2, 3), {}, GLOBAL),  # 2048 blocks: 8 waves against 6
+    # 3 OCPs a block shared, 4 global (h20 f64): 11 or 8 blocks, one wave
+    (32, {"shared": 3, "global": 4}, (2, 3), {}, ilqr.Placement(3, False, False)),
+    # a table past shared memory: global, whatever the waves
+    (4096, {"global": 4}, (0, 3), {}, GLOBAL),
+    (1, {"global": 4}, (0, 3), {}, ilqr.Placement(1, True, False)),
+    # a slice past a block: the workspace
+    (4096, {}, (0, 0), {}, ilqr.Placement(4, True, True)),
+    # forced, whatever the waves
+    (1, {"shared": 4, "global": 4}, (2, 3), {"force_global": True}, ilqr.Placement(1, True, False)),
+    (4096, {"shared": 4, "global": 4}, (2, 3), {"force_workspace": True}, ilqr.Placement(4, True, True)),
+])
+def test_the_rule_picks_the_fewest_waves(monkeypatch, B, fits, blocks, force, expected):
+    """`placement` with the library's queries replaced: `fits` maps each
+    placement in shared memory that holds an OCP to the most OCPs a block
+    it holds, `blocks` gives the shared and global placements' blocks per
+    SM on a card of 132 SMs."""
+    queried = []
+
+    def smem_bytes(dtype, w, N, L, n_con, n, global_table=False):
+        return 1000 * w if w <= fits.get("global" if global_table else "shared", 0) else 0
+
+    def occupancy(dtype, where, N, L, n_con, n, device=None):
+        queried.append(where)
+        return 132, blocks[where.global_table]
+
+    monkeypatch.setattr(ilqr, "smem_bytes", smem_bytes)
+    monkeypatch.setattr(ilqr, "workspace_elems", lambda w, N, L, n_con: 100 * w)
+    monkeypatch.setattr(ilqr, "occupancy", occupancy)
+    assert ilqr.placement(torch.float32, min(ilqr.WARPS, B), 10, 6, 14, 846, B=B, **force) == expected
+    assert bool(queried) == (len(fits) == 2 and not force)  # occupancy decides only between two that fit
+
+
+@pytest.mark.parametrize("B, warps, sms, blocks, expected", [
+    (1, 1, 132, 2, 1), (4096, 4, 132, 2, 4), (4096, 4, 132, 3, 3), (2048, 4, 132, 2, 2),
+    (2048, 4, 132, 3, 2), (1056, 4, 132, 2, 1), (1057, 4, 132, 2, 2), (8192, 4, 132, 3, 6),
+])
+def test_waves(B, warps, sms, blocks, expected):
+    assert ilqr.waves(B, warps, sms, blocks) == expected
 
 
 @pytest.mark.parametrize("where, name", [
@@ -88,17 +149,22 @@ def test_a_loop_on_the_cpu_counts_no_launch(counters):
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float64).repeat(2, 1)
     res = runner.closed_loop_batch(model, p, cfg, x0, 2)
     assert bool(torch.isfinite(res.xs).all())
-    assert runner._counts() == {"solve": 0, "tail": 0, **dict.fromkeys(ilqr.PLACEMENT_LAUNCHES, 0)}
+    assert runner._counts() == {"solve": 0, "tail": 0, "occupancy_moves": 0,
+                                **dict.fromkeys(ilqr.PLACEMENT_LAUNCHES, 0)}
 
 
 def test_a_replay_adds_its_graphs_launches_to_every_counter(counters):
     ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES, ilqr.PLACEMENT_LAUNCHES["shared"] = 2, 1, 2
+    ilqr.OCCUPANCY_MOVES = 1
     prog = runner._Program.__new__(runner._Program)
     prog.graph = types.SimpleNamespace(replay=lambda: None)
-    prog.counts = {**dict.fromkeys(runner._counts(), 0), "solve": 10, "tail": 10, "global": 10}
+    prog.counts = {**dict.fromkeys(runner._counts(), 0), "solve": 10, "tail": 10, "global": 10,
+                   "occupancy_moves": 10}
     prog.run()
     prog.run()
-    assert runner._counts() == {"solve": 22, "tail": 21, "shared": 2, "global": 20, "workspace": 0}
+    assert runner._counts() == {"solve": 22, "tail": 21, "occupancy_moves": 21, "shared": 2, "global": 20,
+                                "workspace": 0}
+    assert ilqr.OCCUPANCY_MOVES == 21
 
 
 # ----------------------------------------------------------------- the card
@@ -142,3 +208,56 @@ def test_cuda_fleet_counts_its_placement(config, traffic_mix, placement, instant
     assert solves == 2 * runner.GRAPH_CYCLES + 2  # the presolve's two, then one a cycle
     assert moved == {**dict.fromkeys(moved, 0), placement: solves}
     assert kernel_launches(prof) == Counter({instantiation: solves})
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_of_4096_moves_to_the_global_placement():
+    """Buckmore h10 f32 at the benchmark's B = 4096: 1024 blocks run in 3
+    waves at the global placement's 3 blocks per SM against 4 at the shared
+    placement's 2, so every solve launch of the loop is "global", counts in
+    `OCCUPANCY_MOVES` and is `<float, true, false>` in the trace; a launch
+    gives the bits of the same launch in the shared placement."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from torch.profiler import ProfilerActivity, profile
+
+    conf = load("perfbench", "configs", "mx5_h10_f32.json")
+    model, p, cfg = model_of(conf, "cuda", torch.float32)
+    tr = load("perfbench", "traffic", "fleet4096.json")
+    x0 = traffic.initial_states(tr, conf["x0"], reference_tables(model.track), 0.5 * conf["vehicle"]["width"], 7, 0)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device="cuda")
+    assert x0.shape[0] == 4096
+    N, L, n = cfg.horizon, cfg.n_linesearch, model.track.k_vals.shape[0]
+    shared = ilqr.Placement(ilqr.WARPS, False, False)
+    assert ilqr.placement(torch.float32, ilqr.WARPS, N, L, 14, n) == shared  # B = 1
+    assert ilqr.placement(torch.float32, ilqr.WARPS, N, L, 14, n, B=4096) == ilqr.Placement(ilqr.WARPS, True, False)
+    print(f"blocks per SM: shared {ilqr.occupancy(torch.float32, shared, N, L, 14, n)}, global "
+          f"{ilqr.occupancy(torch.float32, ilqr.Placement(ilqr.WARPS, True, False), N, L, 14, n)}")
+
+    runner.closed_loop_batch(model, p, cfg, x0, runner.GRAPH_CYCLES)  # captures the program
+    torch.cuda.synchronize()
+    solves, placed, moves = ilqr.SOLVE_LAUNCHES, dict(ilqr.PLACEMENT_LAUNCHES), ilqr.OCCUPANCY_MOVES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = runner.closed_loop_batch(model, p, cfg, x0, 2 * runner.GRAPH_CYCLES)
+        torch.cuda.synchronize()
+    solves = ilqr.SOLVE_LAUNCHES - solves
+    moved = {k: v - placed[k] for k, v in ilqr.PLACEMENT_LAUNCHES.items()}
+    print(f"solve launches {solves}, by placement {moved}, moved {ilqr.OCCUPANCY_MOVES - moves}, "
+          f"in the trace {dict(kernel_launches(prof))}")
+    assert bool(torch.isfinite(res.xs).all())
+    assert solves == 2 * runner.GRAPH_CYCLES + 2
+    assert moved == {**dict.fromkeys(moved, 0), "global": solves}
+    assert ilqr.OCCUPANCY_MOVES - moves == solves
+    assert kernel_launches(prof) == Counter({"float, true, false": solves})
+
+    pk = ilqr.pack(model, p, cfg)
+    z0 = torch.cat([x0, torch.zeros(4096, 2, dtype=torch.float32, device="cuda")], dim=-1)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    us = (0.1 * torch.randn(4096, N, 2, generator=gen, dtype=torch.float32)).cuda()
+    lam = (2.0 * torch.rand(4096, N + 1, 14, generator=gen, dtype=torch.float32)).cuda()
+    moves = ilqr.OCCUPANCY_MOVES
+    got = ilqr._launch(cfg, z0, us, lam, pk)
+    assert ilqr.OCCUPANCY_MOVES == moves + 1
+    want = ilqr._launch(cfg, z0, us, lam, pk, where=shared)
+    assert ilqr.OCCUPANCY_MOVES == moves + 1  # a placement given is no move
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
