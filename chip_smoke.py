@@ -109,12 +109,12 @@ Phases:
    on the same line; (g) the solve kernel at the fleet's B = 4096 (h10
    f32) on buckmore with its table in shared memory and in global memory
    (`_launch`'s `where`; bit-equal), in the placement the wrapper picks
-   (the global one, 3 blocks per SM against 2, counted in
-   `ops.ilqr.OCCUPANCY_MOVES`), and on the benchmark's full-length circuit
-   (20,831 samples; `tools/make_circuit.py`), which takes the global
-   placement: blocks per SM (`ops.ilqr.blocks_per_sm`), launches by
-   placement (`ops.ilqr.PLACEMENT_LAUNCHES`) and the time per launch (CUDA
-   events), so that the placement is told apart from the table's length;
+   (the global one, 3 blocks per SM against 2), and on the benchmark's
+   full-length circuit (20,831 samples; `tools/make_circuit.py`), which
+   takes the global placement: blocks per SM (`ops.ilqr.blocks_per_sm`),
+   launches by placement ("ilqr.solve.<name>" in `utils.profiling`'s
+   counts) and the time per launch (CUDA events), so that the placement is
+   told apart from the table's length;
    then the placement rule across B = 32 to 8192 at h10 f32 and h20 f64:
    the wrapper's pick and both placements' waves and times;
 11. kernel 3 vs its twin on 1024 real candidate geometries (closed,
@@ -182,10 +182,10 @@ Phases:
 The NMPC loops on the card replay CUDA graphs of G control cycles
 (`mpc/runner`); each phase's warm-up call captures the graphs its timed
 call replays, and the solve-kernel launches they count are the cycles'
-(`ops.ilqr.SOLVE_LAUNCHES`; the solves of warm-ups and captures count in
-`runner.CAPTURE_LAUNCHES`), and so do their tail-kernel launches
-(`ops.cycle_tail.TAIL_LAUNCHES`, one per cycle; a capture's are not
-counted).
+("ilqr.solve" in `utils.profiling`'s counts; the solves of warm-ups and
+captures count as "runner.capture.ilqr.solve"), and so do their
+tail-kernel launches ("cycle_tail.tail", one per cycle; a capture's count
+as "runner.capture.cycle_tail.tail").
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after.  Any failure raises, so the exit code is non-zero and no
@@ -372,17 +372,30 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def reset_counts():
-    from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr, velocity_batch
+#: The launch counts `read_counts` reads: solve kernel, kernel 3, tail kernel.
+LAUNCH_COUNTS = ("ilqr.solve", "velocity_batch.launch", "cycle_tail.tail")
 
-    ilqr.SOLVE_LAUNCHES = velocity_batch.LAUNCHES = cycle_tail.TAIL_LAUNCHES = 0
+
+def reset_counts():
+    """Sets the counts of LAUNCH_COUNTS to 0, the others as they are."""
+    from lap_time_optimization_tpu_torch.utils import profiling
+
+    profiling.set_counts({**profiling.counts(), **dict.fromkeys(LAUNCH_COUNTS, 0)})
 
 
 def read_counts():
     """(solve kernel, kernel 3, tail kernel) launches since the last reset."""
-    from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr, velocity_batch
+    from lap_time_optimization_tpu_torch.utils import profiling
 
-    return ilqr.SOLVE_LAUNCHES, velocity_batch.LAUNCHES, cycle_tail.TAIL_LAUNCHES
+    counts = profiling.counts()
+    return tuple(counts[name] for name in LAUNCH_COUNTS)
+
+
+def graph_captures() -> int:
+    """Captures of `ops.optimize.GraphedValueAndGrad` so far."""
+    from lap_time_optimization_tpu_torch.utils import profiling
+
+    return profiling.counts()["optimize.capture"]
 
 
 def nbytes(*tensors) -> int:
@@ -515,7 +528,7 @@ def run_race(method, vehicle, width, out_dir, track_path=None):
         setattr(optimize, name, counted(orig))
     try:
         reset_counts()
-        optimize.GraphedValueAndGrad.CAPTURES = 0
+        captures = graph_captures()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             out = race.main(argv)
@@ -524,7 +537,7 @@ def run_race(method, vehicle, width, out_dir, track_path=None):
     finally:
         for name, orig in origs.items():
             setattr(optimize, name, orig)
-    return out, wall, read_counts(), iters, optimize.GraphedValueAndGrad.CAPTURES
+    return out, wall, read_counts(), iters, graph_captures() - captures
 
 
 def atomic_backward_run(fn):
@@ -583,12 +596,12 @@ def chunked_check(track, max_iter=100, chunk=7, seed=12):
     x0 = torch.as_tensor(x0, dtype=track.left.dtype, device=track.left.device)
     runs, captures, walls = [], [], []
     for minimise, kw in ((optimize.minimize_bounded, {}), (optimize.minimize_bounded_chunked, {"chunk": chunk})):
-        optimize.GraphedValueAndGrad.CAPTURES = 0
+        before = graph_captures()
         t0 = time.perf_counter()
         runs.append(minimise(fun, x0, max_iter=max_iter, **kw))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        captures.append(optimize.GraphedValueAndGrad.CAPTURES)
+        captures.append(graph_captures() - before)
     same = all(torch.equal(a, b) for a, b in zip(*runs))
     return same, runs[0].n_iter.tolist(), captures, walls
 
@@ -1141,8 +1154,9 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
             sargs = solve_inputs(model, cfg, x0, 2.0, seed)
             B = 1 if x0.ndim == 1 else BATCH
             where = ilqr.placement(dtype, min(ilqr.WARPS, B), cfg.horizon, L, 14, n, B=B)
+            glob = ilqr.candidates(dtype, min(ilqr.WARPS, B), cfg.horizon, L, 14, n)["global"]
             shared = ilqr._launch(cfg, *sargs, pk)
-            forced = ilqr._launch(cfg, *sargs, pk, force_global=True)
+            forced = ilqr._launch(cfg, *sargs, pk, where=glob)
             same = all(torch.equal(a, b) for a, b in zip(forced, shared))
             print(f"solve kernel {str(dtype)[6:]} {name} n={n}: the wrapper's (OCPs per block, table in global "
                   f"memory) {where}; the table forced into global memory: bit-equal {same}")
@@ -1150,7 +1164,7 @@ def phase_long_tracks(device, cfg, conf, x0b_np):
                 raise AssertionError(f"solve kernel {name}: placement {where}, forced global bit-equal {same}")
             if dtype == torch.float32 and x0.ndim == 1:
                 out["solve_846_ms"] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk), 20)
-                out["solve_846_global_ms"] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, force_global=True), 20)
+                out["solve_846_global_ms"] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, where=glob), 20)
     print(f"solve kernel B=1 n=846 f32: shared table {out['solve_846_ms']:.4f} ms, forced global "
           f"{out['solve_846_global_ms']:.4f} ms per call (CUDA events)")
 
@@ -1363,8 +1377,8 @@ def fleet_placements(device, cfg, out, reps: int = 10) -> int:
     `fleet_states` (starts over the whole lap, 4-12 m/s), on buckmore in the
     shared and in the global placement (given through `_launch`'s `where`;
     bit-equal), in the placement the wrapper picks there (the global one:
-    3 blocks per SM against the shared placement's 2, so 3 waves against 4,
-    each launch counted in `OCCUPANCY_MOVES`; bit-equal), and on the
+    3 blocks per SM against the shared placement's 2, so 3 waves against 4;
+    bit-equal), and on the
     benchmark's full-length circuit (`data/plots/MX-5/circuit20832/curvature`,
     20,831 samples), whose table takes the global placement: each case's
     placement, blocks per SM, launches by placement and ms per launch (CUDA
@@ -1375,43 +1389,43 @@ def fleet_placements(device, cfg, out, reps: int = 10) -> int:
     from lap_time_optimization_tpu_torch.mpc import track as mpc_track
     from lap_time_optimization_tpu_torch.mpc.solver import OCPParams
     from lap_time_optimization_tpu_torch.ops import ilqr
+    from lap_time_optimization_tpu_torch.utils import profiling
 
     dtype, N, L = torch.float32, cfg.horizon, cfg.n_linesearch
     circuit = mpc_track.load("MX-5", "circuit20832", "curvature", base_dir=os.path.join(ROOT, "data"))
     buckmore = load_main_path(device, dtype)
     shared, global_table = ilqr.Placement(ilqr.WARPS, False, False), ilqr.Placement(ilqr.WARPS, True, False)
     # (label, model and OCP parameters, the placement given or None, the placement expected, its blocks per
-    # SM or None, the launches expected in OCCUPANCY_MOVES per launch)
-    cases = (("buckmore shared", buckmore, shared, "shared", None, 0),
-             ("buckmore global", buckmore, global_table, "global", None, 0),
-             ("buckmore, the wrapper's placement", buckmore, None, "global", 3, 1),
+    # SM or None)
+    cases = (("buckmore shared", buckmore, shared, "shared", None),
+             ("buckmore global", buckmore, global_table, "global", None),
+             ("buckmore, the wrapper's placement", buckmore, None, "global", 3),
              ("circuit20832", (BicycleModel(load_vehicle("MX5"), circuit).to(device, dtype),
-                               OCPParams.reference(dtype, device, lateral_margin=0.05)), None, "global", None, 0))
+                               OCPParams.reference(dtype, device, lateral_margin=0.05)), None, "global", None))
     launches, shared_out = 0, None
-    for label, (model, p), given, expect, expect_blocks, moves_each in cases:
+    for label, (model, p), given, expect, expect_blocks in cases:
         pk = ilqr.pack(model, p, cfg)
         n = pk.tables.shape[-1]
         sargs = solve_inputs(model, cfg, fleet_states(model.track, FLEET_B), 2.0, 3)
         where = given or ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, B=FLEET_B, device=device)
         blocks = ilqr.blocks_per_sm(dtype, where, N, L, 14, n)
         smem = ilqr.smem_bytes(dtype, where.warps, N, L, 14, n, where.global_table)
-        placed, moves = dict(ilqr.PLACEMENT_LAUNCHES), ilqr.OCCUPANCY_MOVES
+        before = profiling.counts()
         got = ilqr._launch(cfg, *sargs, pk, where=given)
         ms = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, where=given), reps)
-        moved = {k: v - placed[k] for k, v in ilqr.PLACEMENT_LAUNCHES.items()}
-        moves = ilqr.OCCUPANCY_MOVES - moves
+        counted = profiling.counts() - before
+        moved = {name: counted[f"ilqr.solve.{name}"] for name in ("shared", "global", "workspace")}
         launches += reps + 2
         shared_out = shared_out or got
         equal = model is not buckmore[0] or all(torch.equal(a, b) for a, b in zip(got, shared_out))
         print(f"solve kernel h10 f32 B={FLEET_B} {label}: n={n}, placement {where.name} ({where.warps} OCPs a "
               f"block, {smem} B of shared memory a block), {blocks} blocks per SM ({blocks * where.warps} warps); "
-              f"launches by placement {moved}, in OCCUPANCY_MOVES {moves}; {ms:.4f} ms per launch (CUDA events, "
+              f"launches by placement {moved}; {ms:.4f} ms per launch (CUDA events, "
               f"{reps})" + (f"; bit-equal to the shared launch {equal}" if model is buckmore[0] else ""))
         if (where.name != expect or moved != {**dict.fromkeys(moved, 0), expect: reps + 2} or not equal
-                or moves != moves_each * (reps + 2) or expect_blocks not in (None, blocks)):
+                or expect_blocks not in (None, blocks)):
             raise AssertionError(f"{label}: placement {where.name} at {blocks} blocks per SM, launches {moved}, "
-                                 f"in OCCUPANCY_MOVES {moves}, bit-equal to the shared launch {equal}; expected "
-                                 f"{expect}")
+                                 f"bit-equal to the shared launch {equal}; expected {expect}")
         out[f"fleet_{label}"] = {"placement": where.name, "blocks_per_sm": blocks, "smem_bytes": smem, "ms": ms}
     return launches + placement_sweep(device, out)
 
@@ -1433,10 +1447,10 @@ def placement_sweep(device, out, reps: int = 5) -> int:
         model, p = load_main_path(device, dtype)
         pk = ilqr.pack(model, p, cfg)
         N, L, n = cfg.horizon, cfg.n_linesearch, pk.tables.shape[-1]
-        candidates = (ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, device=device),
-                      ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, force_global=True, device=device))
-        if candidates[0].name != "shared":
-            raise AssertionError(f"{label}: the table does not fit shared memory ({candidates[0]})")
+        found = ilqr.candidates(dtype, ilqr.WARPS, N, L, 14, n)
+        if "shared" not in found:
+            raise AssertionError(f"{label}: the table does not fit shared memory ({found})")
+        candidates = (found["shared"], found["global"])
         for B in PLACEMENT_SWEEP:
             sargs = solve_inputs(model, cfg, fleet_states(model.track, B), 2.0, 3)
             pick = ilqr.placement(dtype, ilqr.WARPS, N, L, 14, n, B=B, device=device)
@@ -1553,7 +1567,8 @@ def phase_long_horizons(device):
             sargs = solve_inputs(model, h10, cases(model, B), 2.0, 1 if B == 1 else 3)
             where = ilqr.placement(dtype, min(ilqr.WARPS, B), 10, h10.n_linesearch, 14, pk.tables.shape[-1], B=B)
             shared = ilqr._launch(h10, *sargs, pk)
-            same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(h10, *sargs, pk, force_workspace=True), shared))
+            ws = ilqr.candidates(dtype, min(ilqr.WARPS, B), 10, h10.n_linesearch, 14, pk.tables.shape[-1])["workspace"]
+            same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(h10, *sargs, pk, where=ws), shared))
             print(f"solve kernel {dt(dtype)} B={B} h10: the wrapper's placement {tuple(where)}; the workspace "
                   f"forced: bit-equal {same}")
             if where.workspace or not same:
@@ -1574,7 +1589,8 @@ def phase_long_horizons(device):
         for B in (1, BATCH):
             sargs = loop_start(model, cfg, B)
             own = ilqr.solve(model, p, cfg, *sargs, pk)
-            same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(cfg, *sargs, pk, force_workspace=True), own))
+            ws = ilqr.candidates(dtype, min(ilqr.WARPS, B), top, cfg.n_linesearch, 14, n)["workspace"]
+            same = all(torch.equal(a, b) for a, b in zip(ilqr._launch(cfg, *sargs, pk, where=ws), own))
             print(f"N={top}, the last horizon whose slice fits a block in {dt(dtype)} (6 rungs, 14 rows), B={B}: the "
                   f"wrapper's placement {tuple(ilqr.placement(dtype, min(ilqr.WARPS, B), top, 6, 14, n, B=B))}; the "
                   f"workspace forced: bit-equal {same}; N={top + 1} takes "
@@ -1680,8 +1696,9 @@ def phase_long_horizons(device):
     for cfg in (h10, SolverConfig.for_horizon(160)):
         pk = ilqr.pack(model, p, cfg)
         sargs = solve_inputs(model, cfg, runner.X0_REFERENCE, 0.0, 3)
+        forced = ilqr.candidates(torch.float32, 1, cfg.horizon, cfg.n_linesearch, 14, pk.tables.shape[-1])["workspace"]
         own = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk), 10)
-        ws = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, force_workspace=True), 10)
+        ws = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, where=forced), 10)
         out[f"workspace_cost_{cfg.horizon}"] = ws / own
         print(f"solve kernel f32 B=1 N={cfg.horizon}: the wrapper's placement "
               f"{tuple(ilqr.placement(torch.float32, 1, cfg.horizon, 6, 14, pk.tables.shape[-1]))} {own:.4f} ms, "
@@ -1742,7 +1759,7 @@ def phase_graphs(loops, main, steps, batch_steps):
         row = []
         for start, n in ((x0, steps), (x0b, batch_steps)):
             key = runner._program_key(model, p, cfg, start, min(G, n))
-            captures = runner.GRAPH_CAPTURES
+            captures = profiling.counts()["runner.graph_captures"]
             t0 = time.perf_counter()
             with profiling.recording():
                 runner._loop(model, p, cfg, start, n, G)
@@ -1758,13 +1775,16 @@ def phase_graphs(loops, main, steps, batch_steps):
             capture = (f"capture (warm-up cycle {host_s['runner.capture.warmup']:.3f} s, record "
                        f"{host_s['runner.capture.record']:.3f} s, end and instantiate "
                        f"{host_s['runner.capture.instantiate']:.3f} s)" if host_s else "captured before")
+            captured = profiling.counts()["runner.graph_captures"] - captures
             row.append(f"B={start[..., 0].numel()} {n} cycles: {capture}, pool "
-                       f"{prog.pool_bytes / 2**20:.1f} MiB, {runner.GRAPH_CAPTURES - captures} captured in this "
+                       f"{prog.pool_bytes / 2**20:.1f} MiB, {captured} captured in this "
                        f"run, first run {first:.3f} s, then {rate:.2f} solves/s")
         print(f"G={G}: " + "; ".join(row))
     pools = sum(prog.pool_bytes for prog in runner._PROGRAMS.values() if prog.graph is not None)
-    print(f"graph captures so far {runner.GRAPH_CAPTURES} (programs cached {len(runner._PROGRAMS)}, at most "
-          f"{runner._MAX_PROGRAMS}); their warm-up and recorded solve launches {runner.CAPTURE_LAUNCHES}; the cached "
+    counts = profiling.counts()
+    print(f"graph captures so far {counts['runner.graph_captures']} (programs cached {len(runner._PROGRAMS)}, at "
+          f"most {runner._MAX_PROGRAMS}); their warm-up and recorded solve launches "
+          f"{counts['runner.capture.ilqr.solve']}; the cached "
           f"graphs' pools {pools / 2**20:.1f} MiB; memory reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1946,7 +1966,8 @@ def main(argv=None) -> int:
         x0 = runner.X0_REFERENCE if B == 1 else fleet_states(model.track, B)
         sargs = solve_inputs(model, cfg, x0, 0.0 if B == 1 else 2.0, 3)
         for W in (1, 2, 4):
-            solve_ms[B, W] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, warps=W), 20)
+            where = ilqr.placement(torch.float32, W, cfg.horizon, cfg.n_linesearch, 14, pk.tables.shape[-1], B=B)
+            solve_ms[B, W] = cuda_ms(lambda: ilqr._launch(cfg, *sargs, pk, where=where), 20)
         plain_ms[B] = cuda_ms(lambda: ilqr.solve_reference(model, p, cfg, *sargs, pk), 3 if B <= BATCH else 1)
         outs = ilqr.solve(model, p, cfg, *sargs, pk)
         bounds[B] = bound_ms(nbytes(*sargs, *pk, *outs), B * solve_flops(cfg))

@@ -137,35 +137,10 @@ def _advance(model, p, cfg, carry, out: SimResult, start, stop, pack=None):
 #: its readings, and the capture's time grows with G (0.2 s at 10, 0.9-1.4 s
 #: at 50; PERF.md §6), so G is the smallest measured.
 GRAPH_CYCLES = 10
-#: Graph captures so far, one per program (`_program_key`); a run resets it
-#: to count its own.
-GRAPH_CAPTURES = 0
-#: Solve launches run or recorded while warming up for and capturing graphs.
-#: `ops.ilqr.SOLVE_LAUNCHES` counts the loops' cycles alone: a replay adds the
-#: solve launches its graph holds.
-CAPTURE_LAUNCHES = 0
 #: Programs by `_program_key`, oldest first, at most `_MAX_PROGRAMS`, as the
 #: JAX runner bounds its `_const_jit` cache (an eviction only costs a capture).
 _PROGRAMS: dict = {}
 _MAX_PROGRAMS = 32
-
-
-def _counts() -> dict:
-    """The launch counters that a replay adds its graph's launches to and
-    that a capture leaves as it found them: the solve kernel's
-    (`ops.ilqr.SOLVE_LAUNCHES` as "solve", by placement
-    `ops.ilqr.PLACEMENT_LAUNCHES`, and `ops.ilqr.OCCUPANCY_MOVES` as
-    "occupancy_moves") and the tail kernel's (`ops.cycle_tail.TAIL_LAUNCHES`
-    as "tail")."""
-    return {"solve": ilqr.SOLVE_LAUNCHES, "tail": cycle_tail.TAIL_LAUNCHES,
-            "occupancy_moves": ilqr.OCCUPANCY_MOVES, **ilqr.PLACEMENT_LAUNCHES}
-
-
-def _set_counts(counts: dict):
-    """Sets the counters that `_counts` reads."""
-    ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES = counts["solve"], counts["tail"]
-    ilqr.OCCUPANCY_MOVES = counts["occupancy_moves"]
-    ilqr.PLACEMENT_LAUNCHES.update((k, counts[k]) for k in ilqr.PLACEMENT_LAUNCHES)
 
 
 class _Program:
@@ -188,7 +163,7 @@ class _Program:
         self.carry = (new(NX), new(N, NU), new(N + 1, n_con(model)), new(NU))
         self.outs = SimResult(new(cycles, NX), new(cycles, NU), new(cycles), new(cycles), new(cycles))
         self.graph = None
-        self.counts = dict.fromkeys(_counts(), 0)  # the launches one replay runs, as `_counts` reads them
+        self.counts = {}  # what one replay counts (`utils.profiling.counts`): the launches it runs
         self.pool_bytes = 0  # the bytes the capture's pool reserved
 
     def body(self):
@@ -204,14 +179,16 @@ class _Program:
         """PyTorch's recipe, as `ops.optimize.GraphedValueAndGrad` follows it:
         one warm-up cycle on a side stream (the kernel library's build and
         module load, lazy handles; its result is dropped and the carry left
-        as it was), then the body once under `torch.cuda.graph`.  The solves
-        of both count in `CAPTURE_LAUNCHES`, and in none of `_counts`.
-        A host span, `runner.capture` (attribute `pool_bytes`), with the
-        children `.warmup`, `.record` (the body under capture) and
-        `.instantiate` (ending the capture).  A failure raises."""
-        global GRAPH_CAPTURES, CAPTURE_LAUNCHES
+        as it was), then the body once under `torch.cuda.graph`.  What both
+        count (`utils.profiling.count`) moves under "runner.capture." + its
+        name, so a loop's counts hold its cycles alone; the body's counts are
+        what a replay adds (`counts`).  A capture that succeeds counts as
+        "runner.graph_captures".  A host span, `runner.capture` (attribute
+        `pool_bytes`), with the children `.warmup`, `.record` (the body under
+        capture) and `.instantiate` (ending the capture).  A failure
+        raises."""
         device = self.carry[0].device
-        before = _counts()
+        before = profiling.counts()
         try:
             with profiling.span("runner.capture") as attrs, torch.cuda.device(device):
                 with profiling.span("runner.capture.warmup"):
@@ -226,26 +203,29 @@ class _Program:
                     with torch.cuda.graph(graph):
                         with profiling.span("runner.capture.record"):
                             reserved = torch.cuda.memory_reserved(device)
-                            recorded = _counts()
+                            recorded = profiling.counts()
                             self.body()
-                            self.counts = {k: v - recorded[k] for k, v in _counts().items()}
+                            self.counts = profiling.counts() - recorded
                         # closed by `ending` once the graph's context has ended the capture
                         ending.enter_context(profiling.span("runner.capture.instantiate"))
                 self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
                 if attrs is not None:
                     attrs["pool_bytes"] = self.pool_bytes
         finally:
-            CAPTURE_LAUNCHES += ilqr.SOLVE_LAUNCHES - before["solve"]
-            _set_counts(before)
+            during = profiling.counts() - before
+            profiling.set_counts(before)
+            for name, n in during.items():
+                profiling.count("runner.capture." + name, n)
         self.graph = graph
-        GRAPH_CAPTURES += 1
+        profiling.count("runner.graph_captures")
 
     def run(self):
         if self.graph is None:
             self.body()
         else:
             self.graph.replay()
-            _set_counts({k: v + self.counts[k] for k, v in _counts().items()})
+            for name, n in self.counts.items():
+                profiling.count(name, n)
 
 
 def _program_key(model, p, cfg, x0, cycles: int) -> tuple:

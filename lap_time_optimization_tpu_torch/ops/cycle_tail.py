@@ -34,13 +34,9 @@ import ctypes
 import torch
 
 from lap_time_optimization_tpu_torch.ops import _build, ilqr
+from lap_time_optimization_tpu_torch.utils import profiling
 
 NX, NU = ilqr.NX, ilqr.NU
-
-#: Launches of the tail kernel so far, counted as `ops.ilqr.SOLVE_LAUNCHES`:
-#: a graph replay adds the launches its capture recorded, and those made
-#: while warming up for and recording a capture are not counted.
-TAIL_LAUNCHES = 0
 
 _ENTRY = {torch.float32: "lto_cycle_tail_f32", torch.float64: "lto_cycle_tail_f64"}
 _lib = None
@@ -123,9 +119,8 @@ def _check(cfg, x, us, lam, cost, viol, pk: ilqr.Pack, rows):
 
 def _launch(cfg, x, us, lam, cost, viol, pk: ilqr.Pack, rows=None):
     """Check, allocate the new carry (and, without `rows`, sdot), launch the
-    tail kernel on the current stream and count the launch.  Returns
-    (x_next, u0, us_next, lam_next, sdot)."""
-    global TAIL_LAUNCHES
+    tail kernel on the current stream and count the launch as
+    "cycle_tail.tail".  Returns (x_next, u0, us_next, lam_next, sdot)."""
     lead = _check(cfg, x, us, lam, cost, viol, pk, rows)
     B = lead[0] if lead else 1
     N, n_con = us.shape[-2], lam.shape[-1]
@@ -144,7 +139,7 @@ def _launch(cfg, x, us, lam, cost, viol, pk: ilqr.Pack, rows=None):
                                             float(cfg.dt), stream)
     if rc != 0:
         raise RuntimeError(f"tail kernel launch failed: cudaError_t {rc}")
-    TAIL_LAUNCHES += 1
+    profiling.count("cycle_tail.tail")
     x_next, u0, us_next, lam_next = carry
     return x_next, u0, us_next, lam_next, sdot
 

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from lap_time_optimization_tpu_torch.ops import _build
+from lap_time_optimization_tpu_torch.utils import profiling
 
 NX = 8
 NU = 2
@@ -67,14 +68,6 @@ SCAL_FIELDS = (
 _S = {name: i for i, name in enumerate(SCAL_FIELDS)}
 NS = len(SCAL_FIELDS)
 
-#: Launches of the solve kernel so far; a run resets it to count its own.
-SOLVE_LAUNCHES = 0
-#: The same launches by placement (`Placement.name`): the table in shared
-#: memory, in global memory, or everything in the workspace.
-PLACEMENT_LAUNCHES = {"shared": 0, "global": 0, "workspace": 0}
-#: Of the "global" ones, the launches whose table fit in shared memory but
-#: which `placement` put in global memory, as it runs them in fewer waves.
-OCCUPANCY_MOVES = 0
 #: OCPs (warps) per block of the solve kernel: they share one copy of the
 #: lookup table.  A launch of B OCPs takes min(WARPS, B), and fewer where
 #: shared memory does not hold that many slices (long tables or horizons)
@@ -383,33 +376,40 @@ def occupancy(dtype, where: Placement, N: int, L: int, n_con: int, n: int, devic
     return _OCCUPANCY[key]
 
 
-def placement(dtype, warps: int, N: int, L: int, n_con: int, n: int,
-              force_global: bool = False, force_workspace: bool = False, B: int = 1,
-              device=None) -> Placement:
+def candidates(dtype, warps: int, N: int, L: int, n_con: int, n: int) -> dict[str, Placement]:
+    """Every placement the kernel takes at these sizes, by `Placement.name`:
+    "shared" (the table and the slices in shared memory) and "global" (the
+    table in global memory, the slices in shared memory), each with the most
+    OCPs per block up to `warps` that fit, where one fits; "workspace"
+    (table, scalars and slices in global memory, `warps` OCPs per block)
+    wherever an OCP's slice fits the kernel's 32-bit indices."""
+    found = {}
+    for global_table in (False, True):
+        W = next((w for w in range(warps, 0, -1) if smem_bytes(dtype, w, N, L, n_con, n, global_table)), 0)
+        if W:
+            where = Placement(W, global_table, False)
+            found[where.name] = where
+    if workspace_elems(warps, N, L, n_con):
+        found["workspace"] = Placement(warps, True, True)
+    return found
+
+
+def placement(dtype, warps: int, N: int, L: int, n_con: int, n: int, B: int = 1, device=None) -> Placement:
     """Where a launch of B OCPs runs on `device` (default: the current
-    card).  The candidates hold at least one OCP per block, with the most
-    OCPs per block up to `warps`: the table and the slices in shared
-    memory; the table in global memory and the slices in shared memory.
-    Of those that fit, the one that runs the launch in the fewest waves
-    (`fewest_waves`, from `occupancy`), the first where they tie: at B = 1
-    and wherever the blocks fit the card at once, the shared one.  Where
-    neither fits, the workspace (table, scalars and slices in global
-    memory, `warps` OCPs per block).  `force_global` skips the first,
-    `force_workspace` the first two.  Raises where the kernel takes none:
-    an OCP's slice past its 32-bit indices."""
-    fits = []
-    if not force_workspace:
-        for global_table in ((True,) if force_global else (False, True)):
-            W = next((w for w in range(warps, 0, -1)
-                      if smem_bytes(dtype, w, N, L, n_con, n, global_table)), 0)
-            if W:
-                fits.append(Placement(W, global_table, False))
+    card), of its `candidates`: of "shared" and "global", those that fit,
+    the one that runs the launch in the fewest waves (`fewest_waves`, from
+    `occupancy`), the first where they tie: at B = 1 and wherever the
+    blocks fit the card at once, the shared one.  Where neither fits, the
+    workspace.  Raises where the kernel takes none: an OCP's slice past its
+    32-bit indices."""
+    found = candidates(dtype, warps, N, L, n_con, n)
+    fits = [found[name] for name in ("shared", "global") if name in found]
     if len(fits) > 1:
         return fewest_waves(B, [(where, *occupancy(dtype, where, N, L, n_con, n, device)) for where in fits])
     if fits:
         return fits[0]
-    if workspace_elems(warps, N, L, n_con):
-        return Placement(warps, True, True)
+    if "workspace" in found:
+        return found["workspace"]
     raise ValueError(f"the solve kernel does not take N={N} L={L} n_con={n_con} with {warps} OCPs per "
                      "block: an OCP's slice would pass its 32-bit indices")
 
@@ -426,28 +426,21 @@ def blocks_per_sm(dtype, where: Placement, N: int, L: int, n_con: int, n: int) -
     return rc
 
 
-def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
-            force_global: bool = False, force_workspace: bool = False, where: Placement | None = None):
+def _launch(cfg, z0, us_init, lam_init, pk: Pack, where: Placement | None = None):
     """Check, allocate the outputs (and the workspace where the placement
-    needs one), launch the solve kernel on the current stream with `warps`
-    OCPs per block (default min(WARPS, B); fewer where shared memory does
-    not hold them) in the placement `placement` picks for B OCPs on z0's
-    card (`force_global`, `force_workspace`: the table, or everything, in
-    global memory whatever the sizes), or in `where` as given, and count
-    the launch, by its placement, and in `OCCUPANCY_MOVES` where the rule
-    put a table that fits shared memory in global memory."""
-    global SOLVE_LAUNCHES, OCCUPANCY_MOVES
+    needs one), launch the solve kernel on the current stream in the
+    placement `placement` picks for B OCPs on z0's card, with at most
+    min(WARPS, B) OCPs per block, or in `where` as given (one of
+    `candidates`), and count the launch as "ilqr.solve" and by its
+    placement as "ilqr.solve.<name>"."""
     lead = _check_solve(cfg, z0, us_init, lam_init, pk)
     B = lead[0] if lead else 1
     N, L, n_con, n = cfg.horizon, cfg.n_linesearch, lam_init.shape[-1], pk.tables.shape[-1]
     lib = build()
-    want = where.warps if where is not None else min(WARPS, B) if warps is None else warps
-    if not 1 <= want <= MAX_WARPS:
-        raise ValueError(f"warps={want}: the kernel takes 1 to {MAX_WARPS} OCPs per block")
-    moved = False
     if where is None:
-        where = placement(z0.dtype, want, N, L, n_con, n, force_global, force_workspace, B, z0.device)
-        moved = where.name == "global" and not force_global and smem_bytes(z0.dtype, 1, N, L, n_con, n) > 0
+        where = placement(z0.dtype, min(WARPS, B), N, L, n_con, n, B, z0.device)
+    if not 1 <= where.warps <= MAX_WARPS:
+        raise ValueError(f"warps={where.warps}: the kernel takes 1 to {MAX_WARPS} OCPs per block")
     new = lambda *shape: torch.empty(lead + shape, dtype=z0.dtype, device=z0.device)
     outs = (new(N, NU), new(N + 1, NZ), new(N + 1, n_con), new(), new())
     ws_ptr = None
@@ -469,9 +462,8 @@ def _launch(cfg, z0, us_init, lam_init, pk: Pack, warps: int | None = None,
             float(cfg.reg_init), stream)
     if rc != 0:
         raise RuntimeError(f"solve kernel launch failed: cudaError_t {rc}")
-    SOLVE_LAUNCHES += 1
-    PLACEMENT_LAUNCHES[where.name] += 1
-    OCCUPANCY_MOVES += moved
+    profiling.count("ilqr.solve")
+    profiling.count(f"ilqr.solve.{where.name}")
     return outs
 
 

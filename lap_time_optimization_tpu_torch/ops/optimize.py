@@ -47,6 +47,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from lap_time_optimization_tpu_torch.utils import profiling
+
 
 class MinimizeResult(NamedTuple):
     x: torch.Tensor
@@ -84,11 +86,10 @@ class GraphedValueAndGrad:
     calls on a side stream, then one call under `torch.cuda.graph`.  Both
     run the dense linear solves (the spline fits) on cuSOLVER: PyTorch's
     default picks MAGMA for batched solves, whose calls cannot be captured
-    (the capture is invalidated).  `CAPTURES` counts the captures of every
-    instance (tests and chip_smoke.py reset and read it)."""
+    (the capture is invalidated).  Each capture counts as
+    "optimize.capture" (`utils.profiling.count`)."""
 
     WARMUP = 2
-    CAPTURES = 0
 
     def __init__(self, fun):
         self.fun = fun
@@ -106,7 +107,7 @@ class GraphedValueAndGrad:
         return f_out.clone(), g_out.clone()
 
     def _capture(self, x: torch.Tensor):
-        GraphedValueAndGrad.CAPTURES += 1
+        profiling.count("optimize.capture")
         x_in = x.detach().clone()
         main = torch.cuda.current_stream(x.device)
         side = torch.cuda.Stream(device=x.device)

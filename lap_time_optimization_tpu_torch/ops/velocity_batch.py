@@ -52,13 +52,12 @@ import torch
 
 from lap_time_optimization_tpu_torch.ops import _build
 from lap_time_optimization_tpu_torch.ops.velocity import GRAV
+from lap_time_optimization_tpu_torch.utils import profiling
 
 MAX_ENGINE_KNOTS = 8
 #: Packed scalars: mass, traction cap f_cap, Pacejka engine constant
 #: T·C_m − Cr0 and quadratic Cr2, and μ·g of the lateral limit.
 N_PARAMS = 5
-#: Launches of the CUDA kernel so far; a run resets it to count its own.
-LAUNCHES = 0
 #: Candidates (warps) per block: at most MAX_WARPS, chosen by `warps_for`.
 MAX_WARPS = 4
 #: Arrays of N a candidate keeps (k, v_loc, ds, v_acc, v_dec): in shared
@@ -219,10 +218,10 @@ def _launch(vehicle, s, k_abs, s_max, closed: bool, warps: int | None = None,
     """Check the inputs, allocate the output, launch the kernel on the
     current stream with `warps` candidates per block (default `warps_for`;
     fewer where shared memory does not hold them) and `segments` per sweep
-    (default SEGMENTS), and count the launch.  The candidates' arrays sit in
-    shared memory where one candidate's fit, else (or with `force_global`)
-    in a global scratch of (B, ARRAYS, N) with `warps` per block."""
-    global LAUNCHES
+    (default SEGMENTS), and count the launch as "velocity_batch.launch".
+    The candidates' arrays sit in shared memory where one candidate's fit,
+    else (or with `force_global`) in a global scratch of (B, ARRAYS, N)
+    with `warps` per block."""
     if k_abs.dtype not in _ENTRY:
         raise TypeError(f"the velocity kernel takes float32 or float64, not {k_abs.dtype}")
     B, N = k_abs.shape
@@ -262,7 +261,7 @@ def _launch(vehicle, s, k_abs, s_max, closed: bool, warps: int | None = None,
         rc = getattr(lib, _ENTRY[k_abs.dtype])(*ptrs, *ints, stream)
     if rc != 0:
         raise RuntimeError(f"velocity kernel launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
+    profiling.count("velocity_batch.launch")
     return out
 
 

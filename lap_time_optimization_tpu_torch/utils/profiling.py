@@ -7,6 +7,8 @@
   device time between two CUDA events);
 * `record` / `recording`, `span`, `spans`, `write_spans` — the program's
   span recorder: one `Timer`, off by default;
+* `count`, `counts`, `set_counts` — the program's event counts: one table
+  by "<module>.<event>", where each kernel wrapper counts its launches;
 * `trace` — an optional `torch.profiler` session that writes a Chrome trace
   into a directory;
 * `log_metrics` — one-line structured (JSON) metric records on stdout;
@@ -22,6 +24,7 @@ recorded from one thread.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -32,15 +35,13 @@ import torch
 
 
 class Timer:
-    """Named spans.  `spans` holds each name's wall seconds (`report()`:
-    the first apart from the steady mean); `records` holds every span:
-    `name`, `id`, `parent` (the innermost span open at its start),
-    `request` (the id of the innermost enclosing span opened with
-    `request=True`, which is its own), `start_ns` and `end_ns` on
-    `time.time_ns()`, and `attrs`."""
+    """Named spans.  `records` holds every span: `name`, `id`, `parent`
+    (the innermost span open at its start), `request` (the id of the
+    innermost enclosing span opened with `request=True`, which is its own),
+    `start_ns` and `end_ns` on `time.time_ns()`, and `attrs`; `report()`
+    gives each name's wall seconds, the first apart from the steady mean."""
 
     def __init__(self):
-        self.spans: dict[str, list[float]] = {}
         self.records: list[dict] = []
         self._open: list[dict] = []
         self._events: dict[int, tuple] = {}  # record id -> (start, end) CUDA events
@@ -74,7 +75,6 @@ class Timer:
                 self._events[rec["id"]] = (start, end)
             rec["end_ns"] = time.time_ns()
             self._open.pop()
-            self.spans.setdefault(name, []).append((rec["end_ns"] - rec["start_ns"]) / 1e9)
 
     def resolve(self) -> list[dict]:
         """The closed spans as plain dicts, in the order they opened, each
@@ -99,10 +99,13 @@ class Timer:
         return out
 
     def report(self) -> dict:
+        spans: dict[str, list[float]] = {}
+        for rec in sorted((r for r in self.records if r["end_ns"] is not None), key=lambda r: r["end_ns"]):
+            spans.setdefault(rec["name"], []).append((rec["end_ns"] - rec["start_ns"]) / 1e9)
         return {
             name: {"first_s": xs[0], "steady_s": (sum(xs[1:]) / len(xs[1:]) if len(xs) > 1 else xs[0]),
                    "count": len(xs)}
-            for name, xs in self.spans.items()
+            for name, xs in spans.items()
         }
 
 
@@ -151,6 +154,29 @@ def write_spans(path: str) -> int:
         for item in items:
             fh.write(json.dumps(item) + "\n")
     return len(items)
+
+
+#: The program's event counts by "<module>.<event>" (the solve kernel's
+#: launches are "ilqr.solve", and by placement "ilqr.solve.shared" ...): the
+#: code that launches a kernel counts it there, and a graph replay adds the
+#: counts its capture recorded (`mpc/runner._Program`).
+COUNTS: collections.Counter = collections.Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds n to the event count `name`."""
+    COUNTS[name] += n
+
+
+def counts() -> collections.Counter:
+    """A copy of the whole table (a name never counted reads 0)."""
+    return collections.Counter(COUNTS)
+
+
+def set_counts(table) -> None:
+    """Replaces the whole table by `table`."""
+    COUNTS.clear()
+    COUNTS.update(table)
 
 
 @contextlib.contextmanager

@@ -27,8 +27,7 @@ from lap_time_optimization_tpu.mpc import solver as JS
 from lap_time_optimization_tpu.mpc import track as jax_track
 from lap_time_optimization_tpu_torch.cli import mpc as cli_mpc
 from lap_time_optimization_tpu_torch.mpc import runner, solver as TS
-from lap_time_optimization_tpu_torch.ops import ilqr
-from lap_time_optimization_tpu_torch.utils import convert
+from lap_time_optimization_tpu_torch.utils import convert, profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DATA = os.path.join(ROOT, "data")
@@ -65,10 +64,10 @@ def loops(base):
     jm, jp, tm, tp = _pair(base, jnp.float64)
     ref = jax_runner.closed_loop(jm, jp, JS.SolverConfig(horizon=10, backend="xla"),
                                  jnp.asarray(jax_runner.X0_REFERENCE), STEPS)
-    before = ilqr.SOLVE_LAUNCHES
+    before = profiling.counts()["ilqr.solve"]
     got = runner.closed_loop(tm, tp, TS.SolverConfig(horizon=10),
                              torch.as_tensor(runner.X0_REFERENCE), STEPS)
-    return ref, got, tm, tp, ilqr.SOLVE_LAUNCHES - before
+    return ref, got, tm, tp, profiling.counts()["ilqr.solve"] - before
 
 
 def test_full_solve_matches_jax_f32(base):

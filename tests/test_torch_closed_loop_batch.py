@@ -21,7 +21,7 @@ from lap_time_optimization_tpu.mpc import runner as jax_runner
 from lap_time_optimization_tpu.mpc import solver as JS
 from lap_time_optimization_tpu_torch.mpc import runner, solver as TS
 from lap_time_optimization_tpu_torch.ops import ilqr
-from lap_time_optimization_tpu_torch.utils import convert
+from lap_time_optimization_tpu_torch.utils import convert, profiling
 from test_torch_ilqr import _numpy_fields, base  # noqa: F401  (fixture)
 
 JDT = {"float32": jnp.float32, "float64": jnp.float64}
@@ -95,9 +95,9 @@ def test_solve_batch_rejects_exact_hessians(base):  # noqa: F811
     args = [torch.from_numpy(a) for a in _batch_inputs(float(base[1].s_max), 14, "float64")]
     with pytest.raises(NotImplementedError, match="hessian_mode"):
         ilqr._check_solve(cfg, *args, ilqr.pack(tm, tp, cfg))
-    launches = ilqr.SOLVE_LAUNCHES
+    launches = profiling.counts()["ilqr.solve"]
     got = TS.solve_batch(tm, tp, cfg, *args)
-    assert ilqr.SOLVE_LAUNCHES == launches
+    assert profiling.counts()["ilqr.solve"] == launches
     assert got.us.shape == (3, 10, 2) and bool(torch.isfinite(got.cost).all())
 
 
@@ -116,9 +116,9 @@ def fleets(base):  # noqa: F811
     x0 = _fleet_states()
     ref = jax_runner.closed_loop_batch(jm, jp, JS.SolverConfig(horizon=10, backend="xla"),
                                        jnp.asarray(x0), 3)
-    launches = ilqr.SOLVE_LAUNCHES
+    launches = profiling.counts()["ilqr.solve"]
     got = runner.closed_loop_batch(tm, tp, TS.SolverConfig(horizon=10), torch.from_numpy(x0), 3)
-    launches = ilqr.SOLVE_LAUNCHES - launches
+    launches = profiling.counts()["ilqr.solve"] - launches
     return ref, got, tm, tp, launches
 
 

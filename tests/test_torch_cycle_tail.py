@@ -28,6 +28,7 @@ own x_next.  The launch count reads the loop's cycles after a graphed
 import copy
 import os
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -39,6 +40,7 @@ from lap_time_optimization_tpu_torch.mpc import runner
 from lap_time_optimization_tpu_torch.mpc import track as mpc_track
 from lap_time_optimization_tpu_torch.mpc.solver import OCPParams, SolveResult, SolverConfig
 from lap_time_optimization_tpu_torch.ops import _build, cycle_tail, ilqr
+from lap_time_optimization_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DATA = os.path.join(ROOT, "data")
@@ -139,12 +141,12 @@ def test_the_build_hashes_every_source_and_header():
 
 def test_no_tail_launch_on_the_cpu(track, monkeypatch):
     """A CPU loop runs the plain tail: the launch count stays 0."""
-    monkeypatch.setattr(cycle_tail, "TAIL_LAUNCHES", 0)
+    monkeypatch.setattr(profiling, "COUNTS", Counter())
     model, p = _setup(track, torch.float64)
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float64)
     runner.closed_loop(model, p, CPU_CFG, x0, 3)
     runner.closed_loop_batch(model, p, CPU_CFG, x0.repeat(2, 1), 2)
-    assert cycle_tail.TAIL_LAUNCHES == 0
+    assert profiling.counts()["cycle_tail.tail"] == 0
 
 
 @pytest.mark.parametrize("batch", [None, 3])
@@ -202,7 +204,7 @@ def test_the_wrapper_checks_before_any_build(track, monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(cycle_tail, "_lib", None)
-    monkeypatch.setattr(cycle_tail, "TAIL_LAUNCHES", 0)
+    monkeypatch.setattr(profiling, "COUNTS", Counter())
     for name, exc, args in _bad(x, us, lam, cost, viol, rows):
         with pytest.raises(exc):
             cycle_tail._launch(CPU_CFG, *args[:5], pk, args[5])
@@ -210,7 +212,7 @@ def test_the_wrapper_checks_before_any_build(track, monkeypatch):
         cycle_tail._launch(CPU_CFG, x, us, lam, cost, viol, pk._replace(tables=pk.tables[:, :1].contiguous()))
     with pytest.raises(RuntimeError, match="nvcc"):
         cycle_tail._launch(CPU_CFG, x, us, lam, cost, viol, pk, rows)
-    assert cycle_tail.TAIL_LAUNCHES == 0
+    assert profiling.counts()["cycle_tail.tail"] == 0
 
 
 # --------------------------------------------------------------- on the card
@@ -301,7 +303,7 @@ def test_cuda_tail_launches_count_the_cycles(track, monkeypatch, loop):
     warm-up and recording are not counted."""
     _need_cuda()
     monkeypatch.setattr(runner, "_PROGRAMS", {})
-    monkeypatch.setattr(cycle_tail, "TAIL_LAUNCHES", 0)
+    monkeypatch.setattr(profiling, "COUNTS", Counter())
     model, p = _setup(track, torch.float32, "cuda")
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float32, device="cuda")
     if loop == "closed_loop_batch":
@@ -309,5 +311,6 @@ def test_cuda_tail_launches_count_the_cycles(track, monkeypatch, loop):
     steps = 2 * runner.GRAPH_CYCLES + 7
     getattr(runner, loop)(model, p, SolverConfig(horizon=10), x0, steps)
     torch.cuda.synchronize()
-    assert cycle_tail.TAIL_LAUNCHES == steps
-    assert all(prog.graph is not None and prog.counts["tail"] == prog.cycles for prog in runner._PROGRAMS.values())
+    assert profiling.counts()["cycle_tail.tail"] == steps
+    assert all(prog.graph is not None and prog.counts["cycle_tail.tail"] == prog.cycles
+               for prog in runner._PROGRAMS.values())

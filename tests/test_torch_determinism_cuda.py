@@ -115,6 +115,7 @@ def test_chunked_zoom_equals_unchunked_with_one_capture():
     _need_cuda()
     from lap_time_optimization_tpu_torch.ops import optimize
     from lap_time_optimization_tpu_torch.optim import racing_line
+    from lap_time_optimization_tpu_torch.utils import profiling
 
     track, _ = _setup(torch.float32)
     fun = lambda a: racing_line.gamma2_objective(track, a)
@@ -122,10 +123,10 @@ def test_chunked_zoom_equals_unchunked_with_one_capture():
                          dtype=torch.float32, device="cuda")
     runs, captures = [], []
     for minimise in (optimize.minimize_bounded, optimize.minimize_bounded_chunked):
-        optimize.GraphedValueAndGrad.CAPTURES = 0
+        before = profiling.counts()["optimize.capture"]
         kw = {"chunk": 7} if minimise is optimize.minimize_bounded_chunked else {}
         runs.append(minimise(fun, x0, max_iter=20, **kw))
-        captures.append(optimize.GraphedValueAndGrad.CAPTURES)
+        captures.append(profiling.counts()["optimize.capture"] - before)
     assert captures == [1, 1]
     assert int(runs[0].n_iter.max()) == 20
     for name, a, b in zip(runs[0]._fields, *runs):

@@ -28,6 +28,7 @@ capture that fails raises.
 import copy
 import dataclasses
 import os
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -39,8 +40,7 @@ from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
 from lap_time_optimization_tpu_torch.mpc import runner
 from lap_time_optimization_tpu_torch.mpc import track as mpc_track
 from lap_time_optimization_tpu_torch.mpc.solver import OCPParams, SolverConfig
-from lap_time_optimization_tpu_torch.ops import ilqr
-from lap_time_optimization_tpu_torch.utils import checkpoint
+from lap_time_optimization_tpu_torch.utils import checkpoint, profiling
 
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 CFG = SolverConfig(horizon=4, substeps=1, al_iters=1, ilqr_iters=1, n_linesearch=2)
@@ -122,13 +122,13 @@ def test_programs_run_no_eager_cycle(track, monkeypatch):
     model, p = _setup(track, torch.float64)
     monkeypatch.setattr(runner, "_advance", lambda *a: pytest.fail("eager cycle"))
     monkeypatch.setattr(runner, "_PROGRAMS", {})
-    counts = (runner.GRAPH_CAPTURES, runner.CAPTURE_LAUNCHES, ilqr.SOLVE_LAUNCHES)
+    counts = profiling.counts()
     first = runner._loop(model, p, CFG, _x0(torch.float64), 10, 4)
     assert sorted(key[7] for key in runner._PROGRAMS) == [2, 4]
     progs = dict(runner._PROGRAMS)
     _assert_same(runner._loop(model, p, CFG, _x0(torch.float64), 10, 4), first)
     assert runner._PROGRAMS == progs
-    assert (runner.GRAPH_CAPTURES, runner.CAPTURE_LAUNCHES, ilqr.SOLVE_LAUNCHES) == counts
+    assert profiling.counts() == counts
     assert all(prog.graph is None for prog in progs.values())
 
 
@@ -241,9 +241,7 @@ def _need_cuda():
 def fresh(monkeypatch):
     """An empty program cache and zeroed counts."""
     monkeypatch.setattr(runner, "_PROGRAMS", {})
-    monkeypatch.setattr(runner, "GRAPH_CAPTURES", 0)
-    monkeypatch.setattr(runner, "CAPTURE_LAUNCHES", 0)
-    monkeypatch.setattr(ilqr, "SOLVE_LAUNCHES", 0)
+    monkeypatch.setattr(profiling, "COUNTS", Counter())
 
 
 CARD_CFG = SolverConfig(horizon=10)
@@ -276,7 +274,8 @@ def test_cuda_graphed_equals_eager(track, fresh, tmp_path, loop, dtype_name):
     else:
         got = getattr(runner, loop)(model, p, CARD_CFG, x0, steps)
     torch.cuda.synchronize()
-    assert runner.GRAPH_CAPTURES >= 2 and all(prog.graph is not None for prog in runner._PROGRAMS.values())
+    assert profiling.counts()["runner.graph_captures"] >= 2
+    assert all(prog.graph is not None for prog in runner._PROGRAMS.values())
     _assert_same(got, ref)
 
 
@@ -299,13 +298,14 @@ def test_cuda_captures_once_per_key_and_cycles(track, fresh):
         elif change == "edit":
             with torch.no_grad():
                 p.q_n.mul_(1.0)
-        ilqr.SOLVE_LAUNCHES = 0
+        solves = profiling.counts()["ilqr.solve"]
         runner.closed_loop(model, p, CARD_CFG, x0, steps)
         torch.cuda.synchronize()
-        assert runner.GRAPH_CAPTURES == expected[i], change
-        assert ilqr.SOLVE_LAUNCHES == steps + 2, change
-    assert runner.CAPTURE_LAUNCHES == 3 * (G + 1 + 7 + 1)  # per capture: a warm-up cycle and the body
-    assert sorted(prog.counts["solve"] for prog in runner._PROGRAMS.values()) == [7, 7, 7, G, G, G]
+        assert profiling.counts()["runner.graph_captures"] == expected[i], change
+        assert profiling.counts()["ilqr.solve"] - solves == steps + 2, change
+    # per capture: a warm-up cycle and the body
+    assert profiling.counts()["runner.capture.ilqr.solve"] == 3 * (G + 1 + 7 + 1)
+    assert sorted(prog.counts["ilqr.solve"] for prog in runner._PROGRAMS.values()) == [7, 7, 7, G, G, G]
 
 
 @pytest.mark.cuda
@@ -327,4 +327,5 @@ def test_cuda_failed_capture_raises(track, fresh, monkeypatch):
     monkeypatch.setattr(runner, "_advance", lambda *a: pytest.fail("eager cycle"))
     with pytest.raises(RuntimeError):
         runner.closed_loop(model, p, CARD_CFG, x0, 5)
-    assert runner._PROGRAMS == {} and runner.GRAPH_CAPTURES == 0 and ilqr.SOLVE_LAUNCHES == 2
+    counts = profiling.counts()
+    assert runner._PROGRAMS == {} and counts["runner.graph_captures"] == 0 and counts["ilqr.solve"] == 2

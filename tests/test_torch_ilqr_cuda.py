@@ -48,6 +48,7 @@ from lap_time_optimization_tpu_torch.mpc import runner
 from lap_time_optimization_tpu_torch.mpc import solver as S
 from lap_time_optimization_tpu_torch.mpc import track as mpc_track
 from lap_time_optimization_tpu_torch.ops import ilqr
+from lap_time_optimization_tpu_torch.utils import profiling
 
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 TOL = {torch.float32: 1e-4, torch.float64: 1e-9}
@@ -103,6 +104,15 @@ def _need_cuda():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
+def _candidate(cfg, args, pk, name, warps=None):
+    """Placement `name` of `ilqr.candidates` for a launch of `args` (z0,
+    us, lam) at `warps` OCPs per block (default the wrapper's, min(WARPS,
+    B))."""
+    z0, _, lam = args
+    warps = min(ilqr.WARPS, z0.shape[0] if z0.dim() > 1 else 1) if warps is None else warps
+    return ilqr.candidates(z0.dtype, warps, cfg.horizon, cfg.n_linesearch, lam.shape[-1], pk.tables.shape[-1])[name]
+
+
 @pytest.mark.cuda
 @CASES
 @DTYPES
@@ -110,10 +120,10 @@ def test_cuda_solve_matches_plain(dtype, tv, te):
     _need_cuda()
     model, p, pk, args = _setup(dtype, tv, te, CFG)
     assert args[2].shape[1] == (16 if te else 14)
-    launches = ilqr.SOLVE_LAUNCHES
+    launches = profiling.counts()["ilqr.solve"]
     got = S.solve(model, p, CFG, *args, pack=pk)
     torch.cuda.synchronize()
-    assert ilqr.SOLVE_LAUNCHES == launches + 1
+    assert profiling.counts()["ilqr.solve"] == launches + 1
     _assert_close(got, ilqr.solve_reference(model, p, CFG, *args, pk), dtype)
 
 
@@ -123,10 +133,10 @@ def test_cuda_solve_matches_plain(dtype, tv, te):
 def test_cuda_solve_batch_matches_plain(dtype, tv, te):
     _need_cuda()
     model, p, pk, args = _setup(dtype, tv, te, CFG, batch=BATCH)
-    launches = ilqr.SOLVE_LAUNCHES
+    launches = profiling.counts()["ilqr.solve"]
     got = S.solve_batch(model, p, CFG, *args, pack=pk)
     torch.cuda.synchronize()
-    assert ilqr.SOLVE_LAUNCHES == launches + 1 and got.cost.shape == (BATCH,)
+    assert profiling.counts()["ilqr.solve"] == launches + 1 and got.cost.shape == (BATCH,)
     _assert_close(got, ilqr.solve_reference(model, p, CFG, *args, pk), dtype)
 
 
@@ -151,9 +161,10 @@ def test_cuda_solve_warps_per_block_agree(dtype):
     default (min(WARPS, B) per block) gives them too."""
     _need_cuda()
     model, p, pk, args = _setup(dtype, False, True, CFG, batch=7)
-    ref = ilqr._launch(CFG, *args, pk, warps=1)
+    ref = ilqr._launch(CFG, *args, pk, where=_candidate(CFG, args, pk, "shared", 1))
     for w in (2, 4, None):
-        got = ilqr.solve(model, p, CFG, *args, pk) if w is None else ilqr._launch(CFG, *args, pk, warps=w)
+        got = (ilqr.solve(model, p, CFG, *args, pk) if w is None
+               else ilqr._launch(CFG, *args, pk, where=_candidate(CFG, args, pk, "shared", w)))
         assert all(torch.equal(g, r) for g, r in zip(got, ref)), w
 
 
@@ -180,7 +191,7 @@ def test_cuda_solve_global_table_is_the_shared_one(dtype, batch):
     n_con, n = args[2].shape[-1], pk.tables.shape[-1]
     assert ilqr.placement(dtype, ilqr.MAX_WARPS, 10, CFG.n_linesearch, n_con, n) == (4, False, False)
     shared = ilqr.solve(model, p, CFG, *args, pk)
-    forced = ilqr._launch(CFG, *args, pk, force_global=True)
+    forced = ilqr._launch(CFG, *args, pk, where=_candidate(CFG, args, pk, "global"))
     assert all(torch.equal(g, s) for g, s in zip(forced, shared))
 
 
@@ -239,7 +250,7 @@ def test_cuda_solve_workspace_past_shared_memory_matches_plain(dtype, top):
     cfg = S.SolverConfig.for_horizon(top)
     model, p, pk, args = _loop_start(dtype, cfg)
     shared = ilqr.solve(model, p, cfg, *args, pk)
-    forced = ilqr._launch(cfg, *args, pk, force_workspace=True)
+    forced = ilqr._launch(cfg, *args, pk, where=_candidate(cfg, args, pk, "workspace"))
     assert all(torch.equal(f, s) for f, s in zip(forced, shared))
     cfg = S.SolverConfig.for_horizon(top + 1)
     model, p, pk, args = _loop_start(dtype, cfg)
@@ -259,7 +270,7 @@ def test_cuda_solve_workspace_is_the_shared_placement(dtype, batch):
     _need_cuda()
     model, p, pk, args = _setup(dtype, True, True, CFG, batch=batch)
     shared = ilqr.solve(model, p, CFG, *args, pk)
-    forced = ilqr._launch(CFG, *args, pk, force_workspace=True)
+    forced = ilqr._launch(CFG, *args, pk, where=_candidate(CFG, args, pk, "workspace"))
     assert all(torch.equal(g, s) for g, s in zip(forced, shared))
 
 

@@ -27,6 +27,7 @@ from lap_time_optimization_tpu.mpc import runner as jax_runner
 from lap_time_optimization_tpu.mpc import solver as JS
 from lap_time_optimization_tpu_torch.mpc import solver as TS
 from lap_time_optimization_tpu_torch.ops import ilqr
+from lap_time_optimization_tpu_torch.utils import profiling
 from test_torch_closed_loop_batch import _pair
 from test_torch_ilqr import base  # noqa: F401  (fixture)
 
@@ -55,9 +56,9 @@ def test_plain_solve_matches_jax(base, horizon, n_linesearch, n_con):  # noqa: F
     pk = ilqr.pack(tm, tp, cfg)
     assert pk.alphas.shape == (n_linesearch,)
     assert ilqr._check_solve(cfg, *map(torch.from_numpy, args), pk) == ()
-    launches = ilqr.SOLVE_LAUNCHES
+    launches = profiling.counts()["ilqr.solve"]
     got = TS.solve(tm, tp, cfg, *map(torch.from_numpy, args), pack=pk)
-    assert ilqr.SOLVE_LAUNCHES == launches
+    assert profiling.counts()["ilqr.solve"] == launches
     assert got.us.shape == (horizon, 2) and got.lam.shape == (horizon + 1, n_con)
     for name in TS.SolveResult._fields:
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),

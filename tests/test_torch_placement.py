@@ -1,28 +1,28 @@
-"""The solve kernel's placement rule (`ops.ilqr.placement`: of the
-placements that fit, the one whose blocks fill the card's SMs in the
-fewest waves at the launch's B, the shared one where they tie) and its
-launches counted by placement (`ops.ilqr.PLACEMENT_LAUNCHES`: the table in
-shared memory, in global memory, or everything in the workspace) and in
-`OCCUPANCY_MOVES`, beside `SOLVE_LAUNCHES`, and carried through the graphed
-loops by `runner._counts` / `_set_counts`.
+"""The solve kernel's placements (`ops.ilqr.candidates`: every placement
+the kernel takes at a launch's sizes, by name: the table in shared memory,
+in global memory, or everything in the workspace), its placement rule
+(`ops.ilqr.placement`: of the candidates that fit in shared memory, the one
+whose blocks fill the card's SMs in the fewest waves at the launch's B, the
+shared one where they tie) and its launches counted in the event counts of
+`utils.profiling` ("ilqr.solve", and by placement "ilqr.solve.<name>"),
+which a graph replay adds to without the runner naming them.
 
-On the CPU (no JAX; a few seconds): the rule as a function of B, the
-OCPs per block, the SM count, each candidate's blocks per SM and which
-candidates fit, with the kernel library's size and occupancy queries
-replaced; each placement's name; a loop on the CPU launches nothing, so no
-counter moves; a replay adds the launches its graph recorded to every
-counter at once.
+On the CPU (no JAX; a few seconds): the candidates and the rule as a
+function of B, the OCPs per block, the SM count, each candidate's blocks
+per SM and which candidates fit, with the kernel library's size and
+occupancy queries replaced; each placement's name; a loop on the CPU
+launches nothing, so no count moves; a replay adds what its graph recorded
+to every count at once.
 
 On the card (`cuda`): a B = 32 `closed_loop_batch` at h10 f32 counts its
 solve launches by placement, all "global" on the benchmark's full-length
 circuit (`mx5_circuit20832_h10_f32`: 20,831 samples, past the 13,468 that
 a block's shared memory holds beside one OCP's slice) and all "shared" on
-buckmore's 846 (`mx5_h10_f32`), as many as `SOLVE_LAUNCHES` moved, and the
+buckmore's 846 (`mx5_h10_f32`), as many as "ilqr.solve" moved, and the
 device trace shows the same instantiation of `ilqr_solve_kernel` for each.
 At the benchmark's B = 4096 on buckmore every solve launch is "global" (3
 blocks of 4 OCPs per SM against the shared placement's 2: 3 waves against
-4) and counts in `OCCUPANCY_MOVES`, with the bits of the same launches in
-the shared placement.
+4), with the bits of the same launches in the shared placement.
 """
 
 import json
@@ -44,7 +44,8 @@ from lap_time_optimization_tpu_torch.models.vehicle import PacejkaVehicle  # noq
 from lap_time_optimization_tpu_torch.mpc import runner  # noqa: E402
 from lap_time_optimization_tpu_torch.mpc import track as mpc_track  # noqa: E402
 from lap_time_optimization_tpu_torch.mpc.solver import OCPParams, SolverConfig  # noqa: E402
-from lap_time_optimization_tpu_torch.ops import cycle_tail, ilqr  # noqa: E402
+from lap_time_optimization_tpu_torch.ops import ilqr  # noqa: E402
+from lap_time_optimization_tpu_torch.utils import profiling  # noqa: E402
 from perfbench import trace, traffic  # noqa: E402
 from perfbench.reference import track as ref_track  # noqa: E402
 
@@ -77,39 +78,19 @@ def reference_tables(track):
 
 @pytest.fixture
 def counters(monkeypatch):
-    """Fresh counters, so that a test neither reads nor leaves others'."""
-    monkeypatch.setattr(ilqr, "SOLVE_LAUNCHES", 0)
-    monkeypatch.setattr(ilqr, "PLACEMENT_LAUNCHES", dict.fromkeys(ilqr.PLACEMENT_LAUNCHES, 0))
-    monkeypatch.setattr(ilqr, "OCCUPANCY_MOVES", 0)
-    monkeypatch.setattr(cycle_tail, "TAIL_LAUNCHES", 0)
+    """A fresh table of counts, so that a test neither reads nor leaves others'."""
+    monkeypatch.setattr(profiling, "COUNTS", Counter())
 
 
 SHARED, GLOBAL = ilqr.Placement(4, False, False), ilqr.Placement(4, True, False)
 
 
-@pytest.mark.parametrize("B, fits, blocks, force, expected", [
-    # buckmore h10 f32: 4 OCPs a block in either, 2 blocks per SM shared, 3 global
-    (1, {"shared": 4, "global": 4}, (2, 3), {}, (1, False, False)),
-    (32, {"shared": 4, "global": 4}, (2, 3), {}, SHARED),
-    (4096, {"shared": 4, "global": 4}, (2, 3), {}, GLOBAL),  # 1024 blocks: 4 waves against 3
-    (2048, {"shared": 4, "global": 4}, (2, 3), {}, SHARED),  # 512 blocks: 2 waves in each
-    (8192, {"shared": 4, "global": 4}, (2, 3), {}, GLOBAL),  # 2048 blocks: 8 waves against 6
-    # 3 OCPs a block shared, 4 global (h20 f64): 11 or 8 blocks, one wave
-    (32, {"shared": 3, "global": 4}, (2, 3), {}, ilqr.Placement(3, False, False)),
-    # a table past shared memory: global, whatever the waves
-    (4096, {"global": 4}, (0, 3), {}, GLOBAL),
-    (1, {"global": 4}, (0, 3), {}, ilqr.Placement(1, True, False)),
-    # a slice past a block: the workspace
-    (4096, {}, (0, 0), {}, ilqr.Placement(4, True, True)),
-    # forced, whatever the waves
-    (1, {"shared": 4, "global": 4}, (2, 3), {"force_global": True}, ilqr.Placement(1, True, False)),
-    (4096, {"shared": 4, "global": 4}, (2, 3), {"force_workspace": True}, ilqr.Placement(4, True, True)),
-])
-def test_the_rule_picks_the_fewest_waves(monkeypatch, B, fits, blocks, force, expected):
-    """`placement` with the library's queries replaced: `fits` maps each
-    placement in shared memory that holds an OCP to the most OCPs a block
-    it holds, `blocks` gives the shared and global placements' blocks per
-    SM on a card of 132 SMs."""
+def fake_queries(monkeypatch, fits, blocks=(0, 0), workspace=True):
+    """The kernel library's queries replaced: `fits` maps each placement in
+    shared memory that holds an OCP to the most OCPs a block it holds,
+    `blocks` gives the shared and global placements' blocks per SM on a
+    card of 132 SMs, `workspace` whether an OCP's slice fits the kernel's
+    indices.  Returns the placements `occupancy` is asked about."""
     queried = []
 
     def smem_bytes(dtype, w, N, L, n_con, n, global_table=False):
@@ -120,10 +101,54 @@ def test_the_rule_picks_the_fewest_waves(monkeypatch, B, fits, blocks, force, ex
         return 132, blocks[where.global_table]
 
     monkeypatch.setattr(ilqr, "smem_bytes", smem_bytes)
-    monkeypatch.setattr(ilqr, "workspace_elems", lambda w, N, L, n_con: 100 * w)
+    monkeypatch.setattr(ilqr, "workspace_elems", lambda w, N, L, n_con: 100 * w * workspace)
     monkeypatch.setattr(ilqr, "occupancy", occupancy)
-    assert ilqr.placement(torch.float32, min(ilqr.WARPS, B), 10, 6, 14, 846, B=B, **force) == expected
-    assert bool(queried) == (len(fits) == 2 and not force)  # occupancy decides only between two that fit
+    return queried
+
+
+@pytest.mark.parametrize("B, fits, blocks, expected", [
+    # buckmore h10 f32: 4 OCPs a block in either, 2 blocks per SM shared, 3 global
+    (1, {"shared": 4, "global": 4}, (2, 3), (1, False, False)),
+    (32, {"shared": 4, "global": 4}, (2, 3), SHARED),
+    (4096, {"shared": 4, "global": 4}, (2, 3), GLOBAL),  # 1024 blocks: 4 waves against 3
+    (2048, {"shared": 4, "global": 4}, (2, 3), SHARED),  # 512 blocks: 2 waves in each
+    (8192, {"shared": 4, "global": 4}, (2, 3), GLOBAL),  # 2048 blocks: 8 waves against 6
+    # 3 OCPs a block shared, 4 global (h20 f64): 11 or 8 blocks, one wave
+    (32, {"shared": 3, "global": 4}, (2, 3), ilqr.Placement(3, False, False)),
+    # a table past shared memory: global, whatever the waves
+    (4096, {"global": 4}, (0, 3), GLOBAL),
+    (1, {"global": 4}, (0, 3), ilqr.Placement(1, True, False)),
+    # a slice past a block: the workspace
+    (4096, {}, (0, 0), ilqr.Placement(4, True, True)),
+])
+def test_the_rule_picks_the_fewest_waves(monkeypatch, B, fits, blocks, expected):
+    """`placement` at B OCPs with the library's queries replaced
+    (`fake_queries`)."""
+    queried = fake_queries(monkeypatch, fits, blocks)
+    assert ilqr.placement(torch.float32, min(ilqr.WARPS, B), 10, 6, 14, 846, B=B) == expected
+    assert bool(queried) == (len(fits) == 2)  # occupancy decides only between two that fit
+
+
+@pytest.mark.parametrize("warps, fits, workspace, expected", [
+    # what a launch of one OCP forced into global memory runs
+    (1, {"shared": 4, "global": 4}, True,
+     {"shared": (1, False, False), "global": (1, True, False), "workspace": (1, True, True)}),
+    # what a launch forced into the workspace runs: there also where shared memory holds the launch
+    (4, {"shared": 4, "global": 4}, True, {"shared": SHARED, "global": GLOBAL, "workspace": (4, True, True)}),
+    (4, {"shared": 3, "global": 4}, True,
+     {"shared": (3, False, False), "global": GLOBAL, "workspace": (4, True, True)}),
+    (4, {"global": 2}, True, {"global": (2, True, False), "workspace": (4, True, True)}),
+    # an OCP's slice past the kernel's indices: none
+    (4, {}, False, {}),
+])
+def test_candidates_are_every_placement_that_fits(monkeypatch, warps, fits, workspace, expected):
+    """`candidates` with the library's queries replaced (`fake_queries`):
+    the shared and global placements at the most OCPs per block up to
+    `warps` that fit, and the workspace wherever its indices fit; no
+    occupancy is asked."""
+    queried = fake_queries(monkeypatch, fits, workspace=workspace)
+    assert ilqr.candidates(torch.float32, warps, 10, 6, 14, 846) == expected
+    assert queried == []
 
 
 @pytest.mark.parametrize("B, warps, sms, blocks, expected", [
@@ -139,9 +164,10 @@ def test_waves(B, warps, sms, blocks, expected):
     (ilqr.Placement(4, True, False), "global"),
     (ilqr.Placement(4, True, True), "workspace"),
 ])
-def test_placement_names(where, name):
+def test_placement_names(monkeypatch, where, name):
     assert where.name == name
-    assert name in ilqr.PLACEMENT_LAUNCHES
+    fake_queries(monkeypatch, {"shared": 4, "global": 4})
+    assert ilqr.candidates(torch.float32, 4, 10, 6, 14, 846)[name] == where
 
 
 def test_a_loop_on_the_cpu_counts_no_launch(counters):
@@ -149,22 +175,18 @@ def test_a_loop_on_the_cpu_counts_no_launch(counters):
     x0 = torch.as_tensor(runner.X0_REFERENCE, dtype=torch.float64).repeat(2, 1)
     res = runner.closed_loop_batch(model, p, cfg, x0, 2)
     assert bool(torch.isfinite(res.xs).all())
-    assert runner._counts() == {"solve": 0, "tail": 0, "occupancy_moves": 0,
-                                **dict.fromkeys(ilqr.PLACEMENT_LAUNCHES, 0)}
+    assert profiling.counts() == Counter()
 
 
 def test_a_replay_adds_its_graphs_launches_to_every_counter(counters):
-    ilqr.SOLVE_LAUNCHES, cycle_tail.TAIL_LAUNCHES, ilqr.PLACEMENT_LAUNCHES["shared"] = 2, 1, 2
-    ilqr.OCCUPANCY_MOVES = 1
+    profiling.set_counts({"ilqr.solve": 2, "ilqr.solve.shared": 2, "cycle_tail.tail": 1})
     prog = runner._Program.__new__(runner._Program)
     prog.graph = types.SimpleNamespace(replay=lambda: None)
-    prog.counts = {**dict.fromkeys(runner._counts(), 0), "solve": 10, "tail": 10, "global": 10,
-                   "occupancy_moves": 10}
+    prog.counts = Counter({"ilqr.solve": 10, "ilqr.solve.global": 10, "cycle_tail.tail": 10})
     prog.run()
     prog.run()
-    assert runner._counts() == {"solve": 22, "tail": 21, "occupancy_moves": 21, "shared": 2, "global": 20,
-                                "workspace": 0}
-    assert ilqr.OCCUPANCY_MOVES == 21
+    assert profiling.counts() == {"ilqr.solve": 22, "ilqr.solve.shared": 2, "ilqr.solve.global": 20,
+                                  "cycle_tail.tail": 21}
 
 
 # ----------------------------------------------------------------- the card
@@ -197,16 +219,16 @@ def test_cuda_fleet_counts_its_placement(config, traffic_mix, placement, instant
     x0 = torch.as_tensor(x0, dtype=torch.float32, device="cuda")
     runner.closed_loop_batch(model, p, cfg, x0, runner.GRAPH_CYCLES)  # captures the program
     torch.cuda.synchronize()
-    solves, placed = ilqr.SOLVE_LAUNCHES, dict(ilqr.PLACEMENT_LAUNCHES)
+    before = profiling.counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = runner.closed_loop_batch(model, p, cfg, x0, 2 * runner.GRAPH_CYCLES)
         torch.cuda.synchronize()
-    solves = ilqr.SOLVE_LAUNCHES - solves
-    moved = {k: v - placed[k] for k, v in ilqr.PLACEMENT_LAUNCHES.items()}
-    print(f"n={n}: solve launches {solves}, by placement {moved}, in the trace {dict(kernel_launches(prof))}")
+    counted = profiling.counts() - before
+    solves = counted["ilqr.solve"]
+    print(f"n={n}: counted {dict(counted)}, in the trace {dict(kernel_launches(prof))}")
     assert bool(torch.isfinite(res.xs).all())
     assert solves == 2 * runner.GRAPH_CYCLES + 2  # the presolve's two, then one a cycle
-    assert moved == {**dict.fromkeys(moved, 0), placement: solves}
+    assert {k: v for k, v in counted.items() if k.startswith("ilqr.solve.")} == {f"ilqr.solve.{placement}": solves}
     assert kernel_launches(prof) == Counter({instantiation: solves})
 
 
@@ -214,9 +236,9 @@ def test_cuda_fleet_counts_its_placement(config, traffic_mix, placement, instant
 def test_cuda_fleet_of_4096_moves_to_the_global_placement():
     """Buckmore h10 f32 at the benchmark's B = 4096: 1024 blocks run in 3
     waves at the global placement's 3 blocks per SM against 4 at the shared
-    placement's 2, so every solve launch of the loop is "global", counts in
-    `OCCUPANCY_MOVES` and is `<float, true, false>` in the trace; a launch
-    gives the bits of the same launch in the shared placement."""
+    placement's 2, so every solve launch of the loop is "global" and is
+    `<float, true, false>` in the trace; a launch gives the bits of the
+    same launch in the shared placement."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     from torch.profiler import ProfilerActivity, profile
@@ -236,18 +258,16 @@ def test_cuda_fleet_of_4096_moves_to_the_global_placement():
 
     runner.closed_loop_batch(model, p, cfg, x0, runner.GRAPH_CYCLES)  # captures the program
     torch.cuda.synchronize()
-    solves, placed, moves = ilqr.SOLVE_LAUNCHES, dict(ilqr.PLACEMENT_LAUNCHES), ilqr.OCCUPANCY_MOVES
+    before = profiling.counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = runner.closed_loop_batch(model, p, cfg, x0, 2 * runner.GRAPH_CYCLES)
         torch.cuda.synchronize()
-    solves = ilqr.SOLVE_LAUNCHES - solves
-    moved = {k: v - placed[k] for k, v in ilqr.PLACEMENT_LAUNCHES.items()}
-    print(f"solve launches {solves}, by placement {moved}, moved {ilqr.OCCUPANCY_MOVES - moves}, "
-          f"in the trace {dict(kernel_launches(prof))}")
+    counted = profiling.counts() - before
+    solves = counted["ilqr.solve"]
+    print(f"counted {dict(counted)}, in the trace {dict(kernel_launches(prof))}")
     assert bool(torch.isfinite(res.xs).all())
     assert solves == 2 * runner.GRAPH_CYCLES + 2
-    assert moved == {**dict.fromkeys(moved, 0), "global": solves}
-    assert ilqr.OCCUPANCY_MOVES - moves == solves
+    assert {k: v for k, v in counted.items() if k.startswith("ilqr.solve.")} == {"ilqr.solve.global": solves}
     assert kernel_launches(prof) == Counter({"float, true, false": solves})
 
     pk = ilqr.pack(model, p, cfg)
@@ -255,9 +275,9 @@ def test_cuda_fleet_of_4096_moves_to_the_global_placement():
     gen = torch.Generator(device="cpu").manual_seed(3)
     us = (0.1 * torch.randn(4096, N, 2, generator=gen, dtype=torch.float32)).cuda()
     lam = (2.0 * torch.rand(4096, N + 1, 14, generator=gen, dtype=torch.float32)).cuda()
-    moves = ilqr.OCCUPANCY_MOVES
+    before = profiling.counts()
     got = ilqr._launch(cfg, z0, us, lam, pk)
-    assert ilqr.OCCUPANCY_MOVES == moves + 1
+    assert profiling.counts() - before == {"ilqr.solve": 1, "ilqr.solve.global": 1}
     want = ilqr._launch(cfg, z0, us, lam, pk, where=shared)
-    assert ilqr.OCCUPANCY_MOVES == moves + 1  # a placement given is no move
+    assert profiling.counts() - before == {"ilqr.solve": 2, "ilqr.solve.global": 1, "ilqr.solve.shared": 1}
     assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -24,9 +24,9 @@ from lap_time_optimization_tpu.models import load_vehicle as jax_load_vehicle
 from lap_time_optimization_tpu.optim import racing_line as jax_rl
 from lap_time_optimization_tpu.track import Track as JaxTrack
 from lap_time_optimization_tpu_torch.models import load_vehicle
-from lap_time_optimization_tpu_torch.ops import velocity_batch
 from lap_time_optimization_tpu_torch.optim import racing_line
 from lap_time_optimization_tpu_torch.track import Track
+from lap_time_optimization_tpu_torch.utils import profiling
 
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 ALPHA_TOL, LAP_RTOL, FUSED_RTOL = 1e-6, 1e-8, 1e-10
@@ -142,11 +142,11 @@ def test_fused_scoring_equals_scan(ring, tbr18_pair):
     x = racing_line.minimise_compromise(track, 0.1, max_iter=30).x
     for line in (torch.full((track.size,), 0.5, dtype=torch.float64), x):
         np.testing.assert_allclose(_lap(track, veh, line, "fused"), _lap(track, veh, line), rtol=FUSED_RTOL)
-    before = velocity_batch.LAUNCHES
+    before = profiling.counts()["velocity_batch.launch"]
     eps = torch.tensor([0.0, 0.1, 0.2], dtype=torch.float64)
     a_f, t_f = racing_line._compromise_sweep(track, veh, eps, max_iter=20, solver="fused")
     a_s, t_s = racing_line._compromise_sweep(track, veh, eps, max_iter=20, solver="scan")
-    assert torch.equal(a_f, a_s) and velocity_batch.LAUNCHES == before  # the CPU runs the twin
+    assert torch.equal(a_f, a_s) and profiling.counts()["velocity_batch.launch"] == before  # the CPU runs the twin
     np.testing.assert_allclose(t_f.numpy(), t_s.numpy(), rtol=FUSED_RTOL)
 
 

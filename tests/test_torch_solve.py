@@ -21,6 +21,7 @@ from lap_time_optimization_tpu.mpc import runner as jax_runner
 from lap_time_optimization_tpu.mpc import solver as JS
 from lap_time_optimization_tpu_torch.mpc import runner, solver as TS
 from lap_time_optimization_tpu_torch.ops import ilqr
+from lap_time_optimization_tpu_torch.utils import profiling
 from test_torch_closed_loop_batch import _pair
 from test_torch_ilqr import base  # noqa: F401  (fixture)
 
@@ -37,9 +38,9 @@ def test_plain_solve_matches_jax_long_horizon(base, n_con):  # noqa: F811
     cfg_t = TS.SolverConfig.for_horizon(20)
     assert (cfg_t.rho_init, cfg_t.rho_scale) == (cfg_j.rho_init, cfg_j.rho_scale) == (200.0, 2.0)
     ref = JS.solve(jm, jp, cfg_j, *map(jnp.asarray, (z0, us, lams)))
-    launches = ilqr.SOLVE_LAUNCHES
+    launches = profiling.counts()["ilqr.solve"]
     got = TS.solve(tm, tp, cfg_t, *map(torch.from_numpy, (z0, us, lams)))
-    assert ilqr.SOLVE_LAUNCHES == launches
+    assert profiling.counts()["ilqr.solve"] == launches
     for name in TS.SolveResult._fields:
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
                                    rtol=1e-9, atol=1e-9, err_msg=name)

@@ -29,6 +29,7 @@ from lap_time_optimization_tpu.mpc import runner as jax_runner
 from lap_time_optimization_tpu.mpc import solver as JS
 from lap_time_optimization_tpu_torch.mpc import solver as TS
 from lap_time_optimization_tpu_torch.ops import ilqr
+from lap_time_optimization_tpu_torch.utils import profiling
 from test_torch_closed_loop_batch import _pair
 from test_torch_ilqr import base  # noqa: F401  (fixture)
 
@@ -145,10 +146,10 @@ def test_exact_solve_matches_jax(base, horizon):  # noqa: F811
     args = _solve_inputs(float(base[1].s_max), horizon, 16)
     ref = JS.solve(jm, jp, JS.SolverConfig(horizon=horizon, hessian_mode="exact", backend="xla"),
                    *map(jnp.asarray, args))
-    launches = ilqr.SOLVE_LAUNCHES
+    launches = profiling.counts()["ilqr.solve"]
     got = TS.solve(tm, tp, TS.SolverConfig(horizon=horizon, hessian_mode="exact"),
                    *map(torch.from_numpy, args))
-    assert ilqr.SOLVE_LAUNCHES == launches
+    assert profiling.counts()["ilqr.solve"] == launches
     _assert_solve(got, ref, SOLVE_TOL, f"exact solve h{horizon}")
 
 

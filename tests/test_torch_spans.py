@@ -25,6 +25,7 @@ import math
 import os
 import statistics
 import time
+from collections import Counter
 
 import pytest
 import torch
@@ -34,7 +35,6 @@ from lap_time_optimization_tpu_torch.models.bicycle import BicycleModel
 from lap_time_optimization_tpu_torch.mpc import runner
 from lap_time_optimization_tpu_torch.mpc import track as mpc_track
 from lap_time_optimization_tpu_torch.mpc.solver import OCPParams, SolverConfig
-from lap_time_optimization_tpu_torch.ops import ilqr
 from lap_time_optimization_tpu_torch.utils import profiling
 
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -200,9 +200,7 @@ def test_clock_is_the_profilers():
 def fresh(monkeypatch):
     """An empty program cache and zeroed counts."""
     monkeypatch.setattr(runner, "_PROGRAMS", {})
-    monkeypatch.setattr(runner, "GRAPH_CAPTURES", 0)
-    monkeypatch.setattr(runner, "CAPTURE_LAUNCHES", 0)
-    monkeypatch.setattr(ilqr, "SOLVE_LAUNCHES", 0)
+    monkeypatch.setattr(profiling, "COUNTS", Counter())
 
 
 @pytest.mark.cuda
@@ -216,12 +214,12 @@ def test_cuda_loop_spans(track, fresh):
     model, p, x0 = _setup(track, torch.float32, "cuda")
     cfg = SolverConfig(horizon=10)
     for captures in (2, 0):
-        ilqr.SOLVE_LAUNCHES = 0
+        solves = profiling.counts()["ilqr.solve"]
         with profiling.recording():
             runner.closed_loop(model, p, cfg, x0, STEPS)
         spans = profiling.spans()
         named = _assert_loop_spans(spans, cycles=runner.GRAPH_CYCLES)
-        assert ilqr.SOLVE_LAUNCHES == STEPS + 2
+        assert profiling.counts()["ilqr.solve"] - solves == STEPS + 2
         caps = named.get("runner.capture", [])
         assert len(caps) == captures
         for cap in caps:

@@ -34,6 +34,7 @@ from lap_time_optimization_tpu_torch.models import load_vehicle
 from lap_time_optimization_tpu_torch.ops import spline, velocity_batch
 from lap_time_optimization_tpu_torch.optim import global_search
 from lap_time_optimization_tpu_torch.track import Track, synthetic_circuit
+from lap_time_optimization_tpu_torch.utils import profiling
 from test_torch_velocity_schedule import hard_rows
 
 REPO_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
@@ -65,10 +66,10 @@ def _agrees(got, ref, dtype):
 def _check(veh, s, k, s_max, closed, dtype, segments=(None,), warps=(None,)):
     """The wrapper (one launch, counted) and `_launch` at every segment count
     and block shape asked for, each against one twin run."""
-    launches = velocity_batch.LAUNCHES
+    launches = profiling.counts()["velocity_batch.launch"]
     got = velocity_batch.solve_profile_batch(veh, s, k, s_max, closed)
     torch.cuda.synchronize()
-    assert velocity_batch.LAUNCHES == launches + 1
+    assert profiling.counts()["velocity_batch.launch"] == launches + 1
     ref = velocity_batch.solve_profile_batch_reference(veh, s, k, s_max, closed)
     _agrees(got, ref, dtype)
     for P in segments:
@@ -183,7 +184,7 @@ def test_cuda_velocity_kernel_past_the_shared_ceiling(dtype, ns):
     for name in ("tbr18", "MX5"):
         veh = load_vehicle(name).to("cuda", dtype)
         for closed in (True, False):
-            launches = velocity_batch.LAUNCHES
+            launches = profiling.counts()["velocity_batch.launch"]
             got = velocity_batch.solve_profile_batch(veh, s, k, length, closed)
-            assert velocity_batch.LAUNCHES == launches + 1
+            assert profiling.counts()["velocity_batch.launch"] == launches + 1
             _agrees(got, _cpu_twin(name, s, k, length, closed).to("cuda"), dtype)
