@@ -41,7 +41,9 @@ Phases:
    instance of the batch against its own B=1 launch, bit for bit; the
    solve kernel timed at B = 1, 32 and 1024 with 1, 2 and 4 OCPs per
    block, and the plain solve; at B=1 also without iLQR iterations and
-   with 1 RK4 substep, to split the solve's time;
+   with 1 RK4 substep, to split the solve's time; the blocks per SM of
+   h10 f32 in the global placement at 4 warps and of h20 f64 in the
+   placement a fleet of 4096 takes;
 4. single stream: a 5-cycle float64 closed loop on the card (solve kernel)
    against the same loop on the CPU (plain solve), then a warm-up of G
    cycles (which captures the CUDA graph of G = `runner.GRAPH_CYCLES`
@@ -1990,6 +1992,13 @@ def main(argv=None) -> int:
     rk4 = 2.0 * (ablation["default"] - ablation["substeps=1"]) / ablation["default"]
     print("solve kernel ablation at B=1 f32: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ablation.items())
           + f"; per iLQR iteration {per_it:.4f} ms; the RK4 chains ~{100 * rk4:.1f}% of the solve")
+    n = pk.tables.shape[-1]
+    cfg20 = SolverConfig.for_horizon(20)
+    h20 = ilqr.placement(torch.float64, ilqr.WARPS, 20, cfg20.n_linesearch, 14, n, B=4096, device=device)
+    print(f"blocks per SM: h10 f32 global at 4 warps "
+          f"{ilqr.blocks_per_sm(torch.float32, ilqr.Placement(4, True, False), 10, 6, 14, n)}; h20 f64 "
+          f"{h20.name} at {h20.warps} warps (a fleet of 4096) "
+          f"{ilqr.blocks_per_sm(torch.float64, h20, 20, cfg20.n_linesearch, 14, n)}")
 
     # ---------------------------------------------------------------- phase 16
     # before the loops, which run the tail kernel every cycle

@@ -1,12 +1,12 @@
 // The curvilinear bicycle model on the device, shared by the port's CUDA
 // kernels: the layout of the scalar vector (ops/ilqr.py scal_tail), the
-// track lookup, the Pacejka tyres, the RHS and its directional derivative,
-// and the augmented RK4 step.  Each is the counterpart of the plain
-// function named beside it (models/bicycle.py, mpc/track.py).  ilqr.cu's
-// solve kernel runs them in its rollouts and linearisation; cycle_tail.cu's
-// kernel runs the RK4 step as the plant of the closed loop.  Everything here
-// has internal linkage, so each source that includes it compiles its own
-// copy.
+// track lookup, the Pacejka tyres, the RHS, its partials and their
+// directional derivatives, and the augmented RK4 step.  Each is the
+// counterpart of the plain function named beside it (models/bicycle.py,
+// mpc/track.py).  ilqr.cu's solve kernel runs them in its rollouts and
+// linearisation; cycle_tail.cu's kernel runs the RK4 step as the plant of
+// the closed loop.  Everything here has internal linkage, so each source
+// that includes it compiles its own copy.
 
 #pragma once
 
@@ -45,6 +45,8 @@ __device__ __forceinline__ float m_atan2(float y, float x) { return atan2f(y, x)
 __device__ __forceinline__ double m_atan2(double y, double x) { return atan2(y, x); }
 __device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float m_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double m_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
 __device__ __forceinline__ float m_fmod(float x, float y) { return fmodf(x, y); }
 __device__ __forceinline__ double m_fmod(double x, double y) { return fmod(x, y); }
 __device__ __forceinline__ float m_floor(float x) { return floorf(x); }
@@ -186,12 +188,23 @@ __device__ void rhs(const T* x, const T* u, const T* tab, int n, const T* sc, T*
   xdot[7] = u[1];
 }
 
-// The RHS and its directional derivative along one tangent column:
-// dxdot = d rhs/dx . v + d rhs/du e_col (col 8, 9 are the inputs), with the
-// partials of BicycleModel.rhs_and_jacobian.
+// The RHS and its partials w.r.t. x at one point, those of
+// BicycleModel.rhs_and_jacobian, evaluated once for any number of tangent
+// columns: the nonzero entries of rows 0-5 of d rhs/dx (rows 6-7 are
+// d rhs/du = I, and d mudot/dr = 1).
 template <typename T>
-__device__ void rhs_jvp(const T* x, const T* v, const T* u, int col, const T* tab, int n,
-                        const T* sc, T* xdot, T* dxdot) {
+struct RhsD {
+  T s0, s1, s2, s3, s4;  // d sdot / d(s, n, mu, vx, vy)
+  T n2, n3, n4;          // d ndot / d(mu, vx, vy)
+  T m0, m1, m2, m3, m4;  // d mudot / d(s, n, mu, vx, vy)
+  T a3, a4, a5, a6, a7;  // d vxdot / d(vx, vy, r, delta, thr)
+  T b3, b4, b5, b6;      // d vydot / d(vx, vy, r, delta)
+  T c3, c4, c5, c6;      // d rdot / d(vx, vy, r, delta)
+};
+
+template <typename T>
+__device__ void rhs_d(const T* x, const T* u, const T* tab, int n, const T* sc, T* xdot,
+                      RhsD<T>& d) {
   const T s = x[0], nn = x[1], mu = x[2], vx = x[3], vy = x[4], r = x[5];
   const T delta = x[6], thr = x[7];
   const T m = sc[MASS], lf = sc[LF], lr = sc[LR], Iz = sc[IZ], ptv = sc[PTV];
@@ -223,21 +236,48 @@ __device__ void rhs_jvp(const T* x, const T* v, const T* u, int col, const T* ta
   xdot[5] = yaw / Iz;
   xdot[6] = u[0];
   xdot[7] = u[1];
-  dxdot[0] = sd_s * v[0] + sd_n * v[1] + sd_mu * v[2] + sd_vx * v[3] + sd_vy * v[4];
-  dxdot[1] = num * v[2] + sin_mu * v[3] + cos_mu * v[4];
-  dxdot[2] = -(dk * sdot + k * sd_s) * v[0] + (-k * sd_n) * v[1] + (-k * sd_mu) * v[2] +
-             (-k * sd_vx) * v[3] + (-k * sd_vy) * v[4] + v[5];
-  dxdot[3] = ((T(-2) * sc[CR2] * vx - t.f_vx * sin_d) / m) * v[3] +
-             ((-t.f_vy * sin_d + m * r) / m) * v[4] + ((-t.f_r * sin_d + m * vy) / m) * v[5] +
-             ((-t.f_d * sin_d - t.Fy_f * cos_d) / m) * v[6] + (sc[CM] / m) * v[7];
-  dxdot[4] = ((t.r_vx + t.f_vx * cos_d - m * r) / m) * v[3] +
-             ((t.r_vy + t.f_vy * cos_d) / m) * v[4] +
-             ((t.r_r + t.f_r * cos_d - m * vx) / m) * v[5] +
-             ((t.f_d * cos_d - t.Fy_f * sin_d) / m) * v[6];
-  dxdot[5] = ((t.f_vx * lf * cos_d - t.r_vx * lr + m_vx) / Iz) * v[3] +
-             ((t.f_vy * lf * cos_d - t.r_vy * lr) / Iz) * v[4] +
-             ((t.f_r * lf * cos_d - t.r_r * lr + m_r) / Iz) * v[5] +
-             ((t.f_d * lf * cos_d - t.Fy_f * lf * sin_d + m_d) / Iz) * v[6];
+  d.s0 = sd_s;
+  d.s1 = sd_n;
+  d.s2 = sd_mu;
+  d.s3 = sd_vx;
+  d.s4 = sd_vy;
+  d.n2 = num;
+  d.n3 = sin_mu;
+  d.n4 = cos_mu;
+  d.m0 = -(dk * sdot + k * sd_s);
+  d.m1 = -k * sd_n;
+  d.m2 = -k * sd_mu;
+  d.m3 = -k * sd_vx;
+  d.m4 = -k * sd_vy;
+  d.a3 = (T(-2) * sc[CR2] * vx - t.f_vx * sin_d) / m;
+  d.a4 = (-t.f_vy * sin_d + m * r) / m;
+  d.a5 = (-t.f_r * sin_d + m * vy) / m;
+  d.a6 = (-t.f_d * sin_d - t.Fy_f * cos_d) / m;
+  d.a7 = sc[CM] / m;
+  d.b3 = (t.r_vx + t.f_vx * cos_d - m * r) / m;
+  d.b4 = (t.r_vy + t.f_vy * cos_d) / m;
+  d.b5 = (t.r_r + t.f_r * cos_d - m * vx) / m;
+  d.b6 = (t.f_d * cos_d - t.Fy_f * sin_d) / m;
+  d.c3 = (t.f_vx * lf * cos_d - t.r_vx * lr + m_vx) / Iz;
+  d.c4 = (t.f_vy * lf * cos_d - t.r_vy * lr) / Iz;
+  d.c5 = (t.f_r * lf * cos_d - t.r_r * lr + m_r) / Iz;
+  d.c6 = (t.f_d * lf * cos_d - t.Fy_f * lf * sin_d + m_d) / Iz;
+}
+
+// The directional derivative of the RHS along one tangent column, from the
+// partials at its point: dxdot = d rhs/dx . v + d rhs/du e_col (col 8, 9 are
+// the inputs).  The compiler contracts these sums into fused multiply-adds;
+// row 3's first pair is fused as an explicit m_fma, the way the compiler
+// fused it when the partials were formed inside the sum (one evaluation of
+// the RHS per column), so that J keeps those bits.
+template <typename T>
+__device__ __forceinline__ void rhs_d_apply(const RhsD<T>& d, const T* v, int col, T* dxdot) {
+  dxdot[0] = d.s0 * v[0] + d.s1 * v[1] + d.s2 * v[2] + d.s3 * v[3] + d.s4 * v[4];
+  dxdot[1] = d.n2 * v[2] + d.n3 * v[3] + d.n4 * v[4];
+  dxdot[2] = d.m0 * v[0] + d.m1 * v[1] + d.m2 * v[2] + d.m3 * v[3] + d.m4 * v[4] + v[5];
+  dxdot[3] = m_fma(d.a4, v[4], d.a3 * v[3]) + d.a5 * v[5] + d.a6 * v[6] + d.a7 * v[7];
+  dxdot[4] = d.b3 * v[3] + d.b4 * v[4] + d.b5 * v[5] + d.b6 * v[6];
+  dxdot[5] = d.c3 * v[3] + d.c4 * v[4] + d.c5 * v[5] + d.c6 * v[6];
   dxdot[6] = col == NX ? T(1) : T(0);
   dxdot[7] = col == NX + 1 ? T(1) : T(0);
 }

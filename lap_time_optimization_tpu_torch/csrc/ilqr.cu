@@ -27,11 +27,11 @@
 // per OCP and needs ~2.0e6 operations per OCP (chip_smoke.py solve_flops):
 // tens of nanoseconds of the card's bytes or FLOPs per OCP, against
 // milliseconds of dependent instructions on one warp, most of them the
-// serial RK4 chains of the ladder rungs and the linearisation's tangent
-// columns (chip_smoke.py times the solve with 1 RK4 substep and with no
-// iLQR iteration to split it).  What cost the time before this kernel was
-// everything around the per-iteration kernels: ~35,000 eager PyTorch
-// launches per solve, and the table reloaded per iteration.
+// serial RK4 chains of the ladder rungs and the linearisation (chip_smoke.py
+// times the solve with 1 RK4 substep and with no iLQR iteration to split
+// it).  What cost the time before this kernel was everything around the
+// per-iteration kernels: ~35,000 eager PyTorch launches per solve, and the
+// table reloaded per iteration.
 //
 // Design:
 //  * One warp per OCP.  A block of W warps (W = 1, 2 or 4) holds W instances
@@ -46,12 +46,16 @@
 //    (below); scalars (rho, reg, the AL cost) are in registers, identical
 //    on every lane.
 //  * Lanes split the stage-parallel work: the linearisation one (stage,
-//    tangent column) per lane, carrying the tangent through the 2x4 RK4
-//    stages as BicycleModel.step_and_jacobian does, with the partials of
-//    rhs_and_jacobian; the GN quads 2 Jr'Jr + rho Jg' diag(act) Jg one stage
-//    per lane, over the sparse rows of Jr and Jg; the ladder one rung per
-//    lane (rung r on lane r % 32: past 32 rungs a lane runs several in
-//    turn); the AL costs and the multiplier update one stage per lane.
+//    group of C = LIN_COLS tangent columns) per lane, so a stage's 10
+//    columns take ceil(10 / C) lanes and N stages ceil(N ceil(10 / C) / 32)
+//    rounds of the warp (1 at N = 10).  A lane carries its C tangents
+//    through the 2x4 RK4 stages as BicycleModel.step_and_jacobian does, and
+//    at each stage point evaluates the RHS and the partials of
+//    rhs_and_jacobian once for all C of them;
+//    the GN quads 2 Jr'Jr + rho Jg' diag(act) Jg one stage per lane, over
+//    the sparse rows of Jr and Jg; the ladder one rung per lane (rung r on
+//    lane r % 32: past 32 rungs a lane runs several in turn); the AL costs
+//    and the multiplier update one stage per lane.
 //    Each Riccati stage is three warp-synchronous phases of ~4 output
 //    elements per lane: P = Vzz [A|B] with Q = l + [A|B]'Vz; the Q blocks
 //    [A|B]'P; then the gains (each lane inverts Quu itself) fused with the
@@ -84,7 +88,7 @@
 // bits.
 //
 // The model's device functions (the track lookup, the tyres, the RHS, its
-// directional derivative, the RK4 step) are in bicycle.cuh, which
+// partials, the RK4 step) are in bicycle.cuh, which
 // cycle_tail.cu's kernel, the plant of the closed loop, includes too.
 //
 // C interface (one entry point per type): every pointer is a contiguous
@@ -112,53 +116,64 @@ constexpr int WARP = 32;
 constexpr int MAX_WARPS = 4;
 constexpr size_t MAX_SMEM = 232448;  // what one block may hold on sm_90
 
-// One tangent column of the step's Jacobian w.r.t. [x, u]
-// (BicycleModel.step_and_jacobian): column col of dX, starting from
-// eye(NX, NX+NU), carried through every RK4 stage.
-template <typename T>
-__device__ void step_jacobian_column(const T* z, const T* u, int col, const T* tab, int n,
-                                     const T* sc, int substeps, T* out) {
+// Tangent columns one lane of the linearisation carries through a stage's
+// RK4: a stage's NZ columns take G = ceil(NZ / C) lanes, and N stages
+// ceil(N G / 32) rounds of the warp (1 at N = 10).  Of C = 2-5, 4 was the
+// fastest on an H100 in both element types (h10 f32 with MIN_BLOCKS, h20
+// f64), where each column more costs registers and spills (PERF.md
+// section 6).
+constexpr int LIN_COLS = 4;
+
+// Columns c0 .. c0 + C - 1 (those below NZ) of the step's Jacobian w.r.t.
+// [x, u] (BicycleModel.step_and_jacobian), each starting from its column of
+// eye(NX, NX+NU) and carried through every RK4 stage; written into the
+// stage's Jk (NX x NZ).  At each stage point the RHS and its partials are
+// evaluated once (rhs_d) and serve all C columns.
+template <typename T, int C>
+__device__ void step_jacobian_columns(const T* z, const T* u, int c0, const T* tab, int n,
+                                      const T* sc, int substeps, T* Jk) {
   const T h = sc[H];
-  T x[NX], v[NX], xt[NX], vt[NX], kx[NX], kv[NX], ax[NX], av[NX];
+  T x[NX], xt[NX], kx[NX], ax[NX], v[C][NX], vt[C][NX], av[C][NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    x[i] = z[i];
-    v[i] = i == col ? T(1) : T(0);
-  }
+  for (int i = 0; i < NX; ++i) x[i] = xt[i] = z[i];
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) v[j][i] = vt[j][i] = i == c0 + j ? T(1) : T(0);
   for (int sub = 0; sub < substeps; ++sub) {
-    rhs_jvp(x, v, u, col, tab, n, sc, kx, kv);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      ax[i] = kx[i];
-      av[i] = kv[i];
-      xt[i] = x[i] + T(0.5) * h * kx[i];
-      vt[i] = v[i] + T(0.5) * h * kv[i];
-    }
-    rhs_jvp(xt, vt, u, col, tab, n, sc, kx, kv);
+    for (int st = 0; st < 4; ++st) {
+      RhsD<T> d;
+      rhs_d(xt, u, tab, n, sc, kx, d);
+      // the stage's weight in the sum and the step to the next stage point
+      const T w = st == 0 || st == 3 ? T(1) : T(2);
+      const T to = st < 2 ? T(0.5) * h : h;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      ax[i] = ax[i] + T(2) * kx[i];
-      av[i] = av[i] + T(2) * kv[i];
-      xt[i] = x[i] + T(0.5) * h * kx[i];
-      vt[i] = v[i] + T(0.5) * h * kv[i];
-    }
-    rhs_jvp(xt, vt, u, col, tab, n, sc, kx, kv);
+      for (int j = 0; j < C; ++j) {
+        T kv[NX];
+        rhs_d_apply(d, vt[j], c0 + j, kv);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      ax[i] = ax[i] + T(2) * kx[i];
-      av[i] = av[i] + T(2) * kv[i];
-      xt[i] = x[i] + h * kx[i];
-      vt[i] = v[i] + h * kv[i];
-    }
-    rhs_jvp(xt, vt, u, col, tab, n, sc, kx, kv);
+        for (int i = 0; i < NX; ++i) {
+          if (st == 0) av[j][i] = kv[i];
+          else if (st < 3) av[j][i] = av[j][i] + w * kv[i];
+          if (st < 3) vt[j][i] = v[j][i] + to * kv[i];
+          else vt[j][i] = v[j][i] = v[j][i] + (h / T(6)) * (av[j][i] + kv[i]);
+        }
+      }
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      x[i] = x[i] + (h / T(6)) * (ax[i] + kx[i]);
-      v[i] = v[i] + (h / T(6)) * (av[i] + kv[i]);
+      for (int i = 0; i < NX; ++i) {
+        if (st == 0) ax[i] = kx[i];
+        else if (st < 3) ax[i] = ax[i] + w * kx[i];
+        if (st < 3) xt[i] = x[i] + to * kx[i];
+        else xt[i] = x[i] = x[i] + (h / T(6)) * (ax[i] + kx[i]);
+      }
     }
   }
 #pragma unroll
-  for (int i = 0; i < NX; ++i) out[i] = v[i];
+  for (int j = 0; j < C; ++j)
+    if (c0 + j < NZ)
+#pragma unroll
+      for (int i = 0; i < NX; ++i) Jk[i * NZ + c0 + j] = v[j][i];
 }
 
 // The stage inequalities g <= 0 (mpc/solver.py _constraints) with the lateral
@@ -556,12 +571,20 @@ __device__ void riccati(Slice<T>& S, int N, T reg, int lane) {
   }
 }
 
+// Blocks of MAX_WARPS warps that one SM must hold at once: 3 in float32
+// with the table in global memory, which keeps a thread within 168
+// registers (a fleet's global placement runs 3 blocks per SM against the
+// shared placement's 2); 1 elsewhere, where shared memory sets the blocks
+// per SM whatever the registers.
+template <typename T, bool GTAB>
+constexpr int MIN_BLOCKS = sizeof(T) == 4 && GTAB ? 3 : 1;
+
 // The whole solve for B instances, one warp each (see the note at the top).
 // GTAB: the table stays in global memory (the global placement).  GWS: the
 // scalars and the slices, laid out as in shared memory, are the block's
 // part of the workspace `ws` (the workspace placement; the table global).
 template <typename T, bool GTAB, bool GWS>
-__global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
+__global__ void __launch_bounds__(MAX_WARPS * WARP, MIN_BLOCKS<T, GTAB>) ilqr_solve_kernel(
     const T* __restrict__ z0, const T* __restrict__ us_init, const T* __restrict__ lam_init,
     const T* __restrict__ tables, const T* __restrict__ alphas, const T* __restrict__ scal,
     T* __restrict__ us_out, T* __restrict__ zs_out, T* __restrict__ lam_out,
@@ -601,6 +624,7 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
   }
   __syncwarp();
 
+  constexpr int lin_groups = (NZ + LIN_COLS - 1) / LIN_COLS;
   T rho = rho_init;
   for (int al = 0; al < al_iters; ++al) {
     // the AL cost of the current trajectory, summed in stage order
@@ -617,12 +641,11 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP) ilqr_solve_kernel(
     __syncwarp();
 
     for (int it = 0; it < ilqr_iters; ++it) {
-      // linearisation: one (stage, tangent column) per lane
-      for (int e = lane; e < N * NZ; e += WARP) {
-        const int k = e / NZ, c = e % NZ;
-        T col[NX];
-        step_jacobian_column(S.zs + k * NZ, S.us + k * NU, c, tab, n, sc, substeps, col);
-        for (int i = 0; i < NX; ++i) S.J[(k * NX + i) * NZ + c] = col[i];
+      // linearisation: one (stage, group of C tangent columns) per lane
+      for (int e = lane; e < N * lin_groups; e += WARP) {
+        const int k = e / lin_groups, g = e % lin_groups;
+        step_jacobian_columns<T, LIN_COLS>(S.zs + k * NZ, S.us + k * NU, g * LIN_COLS, tab, n, sc,
+                                           substeps, S.J + k * NX * NZ);
       }
       // GN quads: one stage per lane (the terminal at u = u_prev)
       for (int k = lane; k < Np; k += WARP) {
